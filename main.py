@@ -1,11 +1,11 @@
 #!/usr/bin/env python
-"""CLI entry point — the TPU-native equivalent of the reference's main.cpp
+"""CLI entry point — the equivalent of the reference's main.cpp
 (src/main.cpp:7-43), with an actual flag system (the reference ignores argv;
 changing anything required editing LBMConfig.h and recompiling).
 
 Examples:
     python main.py --preset cylinder-small --no-vtk
-    python main.py --preset re200 --backend pallas --mesh auto
+    python main.py --preset re200 --mesh auto
     python main.py --preset poiseuille
     python main.py --nx 1024 --ny 256 --reynolds 100 --num-timesteps 20000
 """
@@ -17,7 +17,7 @@ import sys
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
-        description="tpulbm — TPU-native Lattice Boltzmann solver")
+        description="tpulbm — Lattice Boltzmann solver on JAX")
     from tpulbm.config import add_cli_args
     add_cli_args(parser)
     parser.add_argument("--cpu", action="store_true",
@@ -30,7 +30,7 @@ def build_parser() -> argparse.ArgumentParser:
                         help="ignore existing checkpoints")
     parser.add_argument("--distributed", action="store_true",
                         help="call jax.distributed.initialize() for "
-                             "multi-host TPU slices (the MPI_Init analog, "
+                             "multi-host runs (the MPI_Init analog, "
                              "reference src/main.cpp:8)")
     return parser
 
@@ -57,17 +57,9 @@ def main(argv=None) -> int:
 
     params = params_from_args(args)
     if args.mesh == "auto":
-        n_dev = len(jax.devices())
-        if (params.is_3d and params.backend == "pallas"
-                and params.ny % n_dev == 0):
-            # the 3-D pallas kernel shards y only; keep its fast path
-            params = params.replace(mesh_shape=(n_dev, 1))
-        else:
-            # any 2-D decomposition runs the pallas fast path (the x-tiled
-            # kernel stitches ppermute'd halo columns), so use the
-            # reference's surface-minimizing chooser (LBMGrid.h:366-392)
-            params = params.replace(mesh_shape=choose_decomposition(
-                n_dev, params.nx, params.ny))
+        # the reference's surface-minimizing chooser (LBMGrid.h:366-392)
+        params = params.replace(mesh_shape=choose_decomposition(
+            len(jax.devices()), params.nx, params.ny))
 
     runner = Runner(params)
     with trace(args.profile_dir):

@@ -1,6 +1,6 @@
 // fastio.cpp — native ASCII formatters for the hot IO paths.
 //
-// TPU-native analog of the reference's native IO layer (LBMIO.h): the solver
+// The analog of the reference's native IO layer (LBMIO.h): the solver
 // itself is JAX/Pallas, but the large ASCII artifacts (legacy VTK frames,
 // the per-cell velocity_field.csv) are formatted in C++ for throughput —
 // fprintf-formatting a 1M-cell frame in Python costs seconds; here it is

@@ -61,15 +61,21 @@ def test_3d_step_runs_and_conserves_sanity():
     assert ux[:, :, 2:6].mean() > 0
 
 
-def test_3d_sharded_matches_single_device():
-    problem = make_problem(_params())
+@pytest.mark.parametrize("mesh_shape,extra", [
+    ((2, 4), {}), ((1, 2), {}), ((4, 1), {}),
+    ((2, 2), {"obstacle_bc": "bounce_back", "collision": "trt"}),
+], ids=["2x4", "x-sharded", "y-sharded", "bounce-back-trt-2x2"])
+def test_3d_sharded_matches_single_device(mesh_shape, extra):
+    problem = make_problem(_params(**extra))
     step = jax.jit(make_step_rolled(problem))
     f_ref = problem.initial_state()
     for _ in range(8):
         f_ref = step(f_ref)
 
-    mesh = make_mesh((2, 4))
-    chunk = make_chunk_fn(problem, mesh, chunk_len=4, backend="jax")
+    n_dev = mesh_shape[0] * mesh_shape[1]
+    mesh = make_mesh(mesh_shape, devices=jax.devices()[:n_dev])
+    chunk = make_chunk_fn(problem, mesh, chunk_len=4)
+    assert chunk.tier == "xla"
     f, solid = shard_state(mesh, problem.initial_state(), problem.solid)
     for _ in range(2):
         f = chunk(f, solid)
@@ -79,7 +85,7 @@ def test_3d_sharded_matches_single_device():
 
 def test_3d_runner_end_to_end(tmp_path):
     params = _params(num_timesteps=20, output_frequency=10, precision="f32",
-                     output_dir=str(tmp_path), backend="jax",
+                     output_dir=str(tmp_path),
                      enable_vtk=False)
     from tpulbm.runner import Runner
     result = Runner(params, verbose=False).run()
@@ -89,192 +95,9 @@ def test_3d_runner_end_to_end(tmp_path):
     assert data["ux"].shape == (8, 16, 32)
 
 
-def test_3d_pallas_matches_jax():
-    # fused D3Q19 plane-slab kernel (interpret mode) vs the jax tier
-    params = _params(precision="f32")
-    problem = make_problem(params)
-    mesh = make_mesh((1, 1), devices=jax.devices()[:1])
-
-    def run(backend):
-        chunk = make_chunk_fn(problem, mesh, 4, backend=backend)
-        f, solid = shard_state(mesh, problem.initial_state(), problem.solid)
-        f = chunk(f, solid)
-        f = chunk(f, solid)
-        return np.asarray(jax.device_get(f))
-
-    ref = run("jax")
-    got = run("pallas")
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.slow
-def test_3d_pallas_bounce_back_and_trt():
-    params = _params(precision="f32", obstacle_bc="bounce_back",
-                     collision="trt")
-    problem = make_problem(params)
-    mesh = make_mesh((1, 1), devices=jax.devices()[:1])
-
-    def run(backend):
-        chunk = make_chunk_fn(problem, mesh, 3, backend=backend)
-        f, solid = shard_state(mesh, problem.initial_state(), problem.solid)
-        f = chunk(f, solid)
-        return np.asarray(jax.device_get(f))
-
-    np.testing.assert_allclose(run("pallas"), run("jax"), rtol=5e-6,
-                               atol=1e-7)
-
-
-def _run3d(params, mesh_shape, backend, env=None, chunk_len=4, n_chunks=2):
-    import os
-    env = env or {}
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        problem = make_problem(params)
-        n_dev = mesh_shape[0] * mesh_shape[1]
-        mesh = make_mesh(mesh_shape, devices=jax.devices()[:n_dev])
-        chunk = make_chunk_fn(problem, mesh, chunk_len, backend=backend)
-        f, solid = shard_state(mesh, problem.initial_state(), problem.solid)
-        for _ in range(n_chunks):
-            f = chunk(f, solid)
-        return np.asarray(jax.device_get(f))
-    finally:
-        for k in env:
-            os.environ.pop(k, None)
-            if old[k] is not None:
-                os.environ[k] = old[k]
-
-
-def test_3d_tiled_pallas_matches_jax():
-    # y-tiled D3Q19 kernel forced on a single device (the big-plane path)
-    params = _params(precision="f32")
-    ref = _run3d(params, (1, 1), "jax")
-    got = _run3d(params, (1, 1), "pallas", env={"TPULBM_FORCE_TILED": "1"})
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.slow
-def test_3d_tiled_pallas_3step_blocking():
-    # N=3 temporal blocking (the preferred depth when chunk_len divides):
-    # 6 steps per chunk = two 3-step cascades, vs the jax oracle
-    params = _params(precision="f32")
-    ref = _run3d(params, (1, 1), "jax", chunk_len=6)
-    got = _run3d(params, (1, 1), "pallas", chunk_len=6,
-                 env={"TPULBM_SUBSTEPS": "3", "TPULBM_FORCE_TILED": "1"})
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.slow
-def test_3d_tiled_pallas_mixed_depth_blocking():
-    # chunk_len=7 has no single blocking depth; the cadence-aware plan runs
-    # a depth-3 segment (1 iter) + a depth-2 tail (2 iters) — vs the oracle
-    params = _params(precision="f32")
-    ref = _run3d(params, (1, 1), "jax", chunk_len=7)
-    got = _run3d(params, (1, 1), "pallas", chunk_len=7,
-                 env={"TPULBM_FORCE_TILED": "1"})
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.slow
-def test_3d_tiled_pallas_mixed_depth_sharded():
-    # mixed plan [(3,1),(2,1)] on a (2,2) mesh: per-segment halo rings with
-    # different depths, x-halo columns + extended corner rows
-    params = _params(ny=32, precision="f32")
-    ref = _run3d(params, (1, 1), "jax", chunk_len=5, n_chunks=2)
-    got = _run3d(params, (2, 2), "pallas", chunk_len=5, n_chunks=2)
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.slow
-def test_3d_tiled_pallas_3slot_raw_ring():
-    # RS=3 raw plane ring (chosen on hardware when it unlocks a larger
-    # tile; the prefetch moves after the deepest stage) — forced here on
-    # the blocking cascade and on an x-sharded mesh
-    params = _params(precision="f32")
-    ref = _run3d(params, (1, 1), "jax", chunk_len=6)
-    got = _run3d(params, (1, 1), "pallas", chunk_len=6,
-                 env={"TPULBM_PALLAS3D_RS": "3", "TPULBM_FORCE_TILED": "1"})
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-    ref2 = _run3d(params, (1, 1), "jax", chunk_len=2)
-    got2 = _run3d(params, (1, 2), "pallas", chunk_len=2,
-                  env={"TPULBM_PALLAS3D_RS": "3"})
-    np.testing.assert_allclose(got2, ref2, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.slow
-def test_3d_tiled_pallas_y_sharded():
-    # y-sharded 3-D pallas: halo rows ride ppermute (ring_rows_3d)
-    params = _params(ny=32, precision="f32")
-    ref = _run3d(params, (1, 1), "jax")
-    got = _run3d(params, (4, 1), "pallas")
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.slow
-def test_3d_tiled_pallas_y_sharded_bounce_back():
-    # sphere straddling the y-shard boundary, bounce-back + TRT (sphere
-    # centered so it does not pierce the inlet column — that geometry
-    # deliberately falls back to the jax tier, see next test)
-    params = _params(ny=32, precision="f32", obstacle_bc="bounce_back",
-                     collision="trt", cylinder_x=0.5, cylinder_y=0.5,
-                     cylinder_radius=0.2)
-    ref = _run3d(params, (1, 1), "jax")
-    got = _run3d(params, (2, 1), "pallas")
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-def test_3d_tiled_pallas_x_sharded():
-    # x-sharded 3-D pallas (new): halo columns ride ppermute (ring_cols_3d)
-    # and are stitched into the tile buffers; physical-x BCs fire only on
-    # the global-edge shards
-    params = _params(precision="f32")
-    ref = _run3d(params, (1, 1), "jax")
-    got = _run3d(params, (1, 2), "pallas")
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.slow
-def test_3d_tiled_pallas_2d_mesh_bounce_back():
-    # (2,2) mesh: sphere straddling BOTH shard boundaries, bounce-back +
-    # TRT; corner data crosses the mesh diagonally via the two-phase
-    # extended ring rows (ring_rows_ext_3d)
-    params = _params(ny=32, precision="f32", obstacle_bc="bounce_back",
-                     collision="trt", cylinder_x=0.5, cylinder_y=0.5,
-                     cylinder_radius=0.2)
-    ref = _run3d(params, (1, 1), "jax")
-    got = _run3d(params, (2, 2), "pallas")
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.parametrize("mesh_shape",
-                         [(1, 1),
-                          pytest.param((2, 1), marks=pytest.mark.slow)],
-                         ids=["single", "y-sharded"])
-def test_3d_inlet_piercing_solid_runs_fused(mesh_shape):
-    # solid on the inlet column (VERDICT r4 #3e): the y-tiled kernel keeps
-    # the x-edge ghost sanitize alive on the pierced edge (the strip-skip
-    # optimization is only valid on solid-free columns) and the
-    # fluid-masked inlet leaves solid cells to sanitize + the obstacle
-    # pass — matching the jax tier's order. No demotion warning allowed;
-    # the full-plane builder still declines (the tiled kernel owns this).
-    params = _params(ny=32, precision="f32", obstacle_bc="bounce_back",
-                     cylinder_y=0.5, cylinder_radius=0.2)  # touches x=0
-    problem = make_problem(params)
-    assert problem.solid[..., 0].any()
-    from tpulbm.ops.step_pallas3d import make_local_step_pallas3d
-    assert make_local_step_pallas3d(problem, problem.spatial_shape,
-                                    interpret=True) is None
-    import warnings
-    ref = _run3d(params, (1, 1), "jax")
-    with warnings.catch_warnings():
-        warnings.simplefilter("error", UserWarning)   # no silent tier loss
-        got = _run3d(params, mesh_shape, "pallas")
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
 def test_3d_runner_writes_vtk_frames(tmp_path):
     params = _params(num_timesteps=20, output_frequency=10, precision="f32",
-                     output_dir=str(tmp_path), backend="jax",
+                     output_dir=str(tmp_path),
                      enable_vtk=True)
     from tpulbm.runner import Runner
     result = Runner(params, verbose=False).run()

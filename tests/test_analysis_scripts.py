@@ -85,7 +85,7 @@ def test_nusselt_script_on_thermal_artifacts(tmp_path):
                               periodic_x=True, cylinder_radius=0.0,
                               inlet_velocity=0.0, num_timesteps=200,
                               output_frequency=50, enable_vtk=False,
-                              output_dir=str(tmp_path), backend="jax")
+                              output_dir=str(tmp_path))
     assert Runner(params, verbose=False).run().success
 
     env = dict(os.environ, MPLBACKEND="Agg")

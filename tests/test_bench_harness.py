@@ -14,7 +14,7 @@ def _run_bench(*args):
     proc = subprocess.run(
         [sys.executable, "bench.py", "--cpu-devices", "4", "--nx", "128",
          "--ny", "64", "--chunks", "1", "--chunk-len", "10", "--repeats",
-         "1", "--backend", "jax", *args],
+         "1", *args],
         cwd=REPO, env=env, capture_output=True, timeout=560)
     assert proc.returncode == 0, proc.stderr.decode()[-3000:]
     lines = [l for l in proc.stdout.decode().splitlines()
@@ -26,9 +26,12 @@ def test_default_single_json_line():
     recs = _run_bench()
     assert len(recs) == 1
     r = recs[0]
-    for key in ("metric", "value", "unit", "vs_baseline"):
+    for key in ("metric", "value", "unit", "device", "tier"):
         assert key in r, r
     assert r["unit"] == "MLUPS" and r["value"] > 0
+    # every number names the device it was taken on
+    assert r["device"] == {"platform": "cpu", "kind": "cpu", "count": 1}, r
+    assert r["tier"] == "xla"
 
 
 def test_strong_sweep_one_line_per_device_count():

@@ -6,11 +6,8 @@ table is exact against the closed-form circle-line intersection; a
 channel whose walls sit at FRACTIONAL positions between lattice rows
 recovers those positions from the flow itself (the staircase scheme
 cannot, by construction — it always sees the half-way wall); sharded ==
-oracle; pallas runs FUSED on every mesh shape (x-sharded meshes route
-through the x-tiled kernel with pad columns pinned to q=-1) and matches
-the jax tier — no demotion warning.
+oracle on every mesh shape, with a moving wall too.
 """
-import warnings
 
 import jax
 import jax.numpy as jnp
@@ -176,9 +173,11 @@ def test_bouzidi_force_zero_at_rest():
         0.0, atol=1e-15)
 
 
-@pytest.mark.parametrize("mesh_shape", [(2, 1), (2, 2)], ids=["y", "2d"])
-def test_bouzidi_sharded_matches_oracle(mesh_shape):
-    pr = make_problem(_cyl_params())
+@pytest.mark.parametrize("mesh_shape,omega", [((2, 1), 0.0), ((2, 2), 0.0),
+                                              ((1, 2), 0.0), ((2, 2), 0.004)],
+                         ids=["y", "2d", "x", "moving-wall-2d"])
+def test_bouzidi_sharded_matches_oracle(mesh_shape, omega):
+    pr = make_problem(_cyl_params(cylinder_omega=omega))
     step = jax.jit(make_step_rolled(pr))
     s_ref = pr.initial_state()
     for _ in range(10):
@@ -186,7 +185,7 @@ def test_bouzidi_sharded_matches_oracle(mesh_shape):
     s_ref = np.asarray(jax.device_get(s_ref))
     n = mesh_shape[0] * mesh_shape[1]
     mesh = make_mesh(mesh_shape, devices=jax.devices()[:n])
-    chunk = make_chunk_fn(pr, mesh, 5, backend="jax")
+    chunk = make_chunk_fn(pr, mesh, 5)
     s, solid = shard_state(mesh, pr.initial_state(), pr.solid)
     for _ in range(2):
         s = chunk(s, solid)
@@ -194,227 +193,12 @@ def test_bouzidi_sharded_matches_oracle(mesh_shape):
                                rtol=1e-12, atol=1e-14)
 
 
-def _run_bz(pr, mesh_shape, backend, n_chunks=2, chunk_len=5,
-            forbid_demotion=False, expect_substeps=None):
-    n = mesh_shape[0] * mesh_shape[1]
-    mesh = make_mesh(mesh_shape, devices=jax.devices()[:n])
-    if forbid_demotion:
-        with warnings.catch_warnings():
-            warnings.simplefilter("error", UserWarning)
-            chunk = make_chunk_fn(pr, mesh, chunk_len, backend=backend)
-    else:
-        chunk = make_chunk_fn(pr, mesh, chunk_len, backend=backend)
-    if expect_substeps is not None:
-        # guard against a silent fall-through to a shallower depth, which
-        # would make the blocked-parity assertion vacuous
-        assert chunk.pallas_substeps == expect_substeps
-    s, solid = shard_state(mesh, pr.initial_state(), pr.solid)
-    for _ in range(n_chunks):
-        s = chunk(s, solid)
-    return np.asarray(jax.device_get(s))
-
-
-@pytest.mark.parametrize("mesh_shape",
-                         [pytest.param((1, 1), marks=pytest.mark.slow),
-                          (2, 1)],
-                         ids=["single", "y-sharded"])
-def test_bouzidi_pallas_matches_jax(mesh_shape):
-    """The fused kernel (q table riding the slab pipeline, step_pallas)
-    must reproduce the jax tier with NO demotion warning — VERDICT r3 #2."""
-    pr = make_problem(_cyl_params(precision="f32"))
-    ref = _run_bz(pr, (1, 1), "jax")
-    got = _run_bz(pr, mesh_shape, "pallas", forbid_demotion=True)
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-# fast lane keeps one representative ([single-2]); the deeper depths and
-# the sharded-blocked variants are slow-lane (the 1-step sharded rep above
-# stays fast) — each costs 15-90 s of interpret-mode compile on 1 core
-@pytest.mark.parametrize("n_sub", [2,
-                                   pytest.param(3, marks=pytest.mark.slow),
-                                   pytest.param(4, marks=pytest.mark.slow)])
-@pytest.mark.parametrize("mesh_shape", [(1, 1),
-                                        pytest.param((2, 1),
-                                                     marks=pytest.mark.slow)],
-                         ids=["single", "y-sharded"])
-def test_bouzidi_blocked_pallas_matches_jax(mesh_shape, n_sub, monkeypatch):
-    """Bouzidi through the N-step temporally blocked cascade (VERDICT r4
-    #1): the q table rides the slab pipeline in an M-slot ring and the
-    ghost-chain rows apply the cut-link rewrite from q HALO rows
-    (halo.ring_rows of the link table), so sharded blocked results match
-    the jax tier exactly like the staircase BCs do. The cylinder straddles
-    the y shard boundary at ny=64/my=2."""
-    monkeypatch.setenv("TPULBM_SUBSTEPS", str(n_sub))
-    monkeypatch.setenv("TPULBM_PALLAS_TY", "4")
-    pr = make_problem(_cyl_params(precision="f32", ny=64))
-    ref = _run_bz(pr, (1, 1), "jax", n_chunks=1, chunk_len=12)
-    got = _run_bz(pr, mesh_shape, "pallas", n_chunks=1, chunk_len=12,
-                  forbid_demotion=True, expect_substeps=n_sub)
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.slow  # fast moving-wall rep: the x-tiled test below
-def test_bouzidi_blocked_moving_wall_matches_jax(monkeypatch):
-    """Spinning cylinder through the blocked cascade: the 2Q link table
-    (momentum scalars under q) rides the M-slot q ring and the ghost-chain
-    q halo rows carry both blocks."""
-    monkeypatch.setenv("TPULBM_SUBSTEPS", "3")
-    monkeypatch.setenv("TPULBM_PALLAS_TY", "4")
-    pr = make_problem(_cyl_params(precision="f32", ny=64,
-                                  cylinder_omega=0.02))
-    ref = _run_bz(pr, (1, 1), "jax", n_chunks=1, chunk_len=12)
-    got = _run_bz(pr, (2, 1), "pallas", n_chunks=1, chunk_len=12,
-                  forbid_demotion=True, expect_substeps=3)
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.slow  # fast moving-wall rep: the x-sharded moving-wall gate
-def test_bouzidi_pallas_matches_jax_moving_wall():
-    """Spinning cylinder: the 2Q link table (momentum scalars stacked under
-    q) rides the same slab DMA; the in-kernel select adds the 6 w c·u_w
-    terms exactly like ops/bouzidi.apply_bouzidi."""
-    pr = make_problem(_cyl_params(precision="f32", cylinder_omega=0.02))
-    ref = _run_bz(pr, (1, 1), "jax")
-    got = _run_bz(pr, (1, 1), "pallas", forbid_demotion=True)
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-# fast rep: [x-sharded-lane-padded] (covers x-shard fusion AND the padded
-# q-table path); the other three combinations run in the slow lane
-@pytest.mark.parametrize("force_pad",
-                         [pytest.param(0, marks=pytest.mark.slow), 8],
-                         ids=["aligned", "lane-padded"])
-@pytest.mark.parametrize("mesh_shape",
-                         [(1, 2),
-                          pytest.param((2, 2), marks=pytest.mark.slow)],
-                         ids=["x-sharded", "2d-mesh"])
-def test_bouzidi_pallas_xsharded_matches_jax(mesh_shape, force_pad,
-                                             monkeypatch):
-    """x-sharded meshes run bouzidi FUSED through the x-tiled kernel at
-    depth 1 (the q tile rides the slab pipeline center-only, halo columns
-    pinned to -1 — the rewrite touches owned cells only) with NO demotion
-    warning. The cylinder straddles the x shard boundary at nx=64/mx=2.
-    force_pad=8 exercises the q=-1 pad-column branch of the q-tile builder
-    (sharded_step bz_local lane padding), which nx=64/mx=2 would never hit
-    in interpret mode (ADVICE r4)."""
-    if force_pad:
-        monkeypatch.setenv("TPULBM_FORCE_PAD", str(force_pad))
-    pr = make_problem(_cyl_params(precision="f32"))
-    ref = _run_bz(pr, (1, 1), "jax")
-    got = _run_bz(pr, mesh_shape, "pallas", forbid_demotion=True)
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-def test_bouzidi_pallas_xsharded_moving_wall_matches_jax():
-    """Spinning cylinder on an x-sharded mesh: the 2Q-plane link table
-    (momentum scalars stacked under q) rides the same tiled q DMA."""
-    pr = make_problem(_cyl_params(precision="f32", cylinder_omega=0.02))
-    ref = _run_bz(pr, (1, 1), "jax")
-    got = _run_bz(pr, (1, 2), "pallas", forbid_demotion=True)
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.slow  # fast 3-D rep: blocked[2] below (same q machinery + halo)
-def test_bouzidi_3d_pallas_matches_jax():
-    """The y-tiled 3-D kernel threads the q table (center rows only,
-    n_sub == 1) — sphere with fractional radius, single-device and
-    y-sharded, no demotion warning allowed."""
-    params = SimulationParams(nx=48, ny=24, nz=24, problem="cylinder3d",
-                              precision="f32", obstacle_bc="bouzidi",
-                              inlet_velocity=0.05, tau=0.6,
-                              cylinder_radius=0.23)
-    pr = make_problem(params)
-
-    def run(mesh_shape, backend):
-        import warnings as _w
-        n = mesh_shape[0] * mesh_shape[1]
-        mesh = make_mesh(mesh_shape, devices=jax.devices()[:n])
-        with _w.catch_warnings():
-            _w.simplefilter("error")          # no silent tier loss
-            chunk = make_chunk_fn(pr, mesh, 4, backend=backend)
-        s, solid = shard_state(mesh, pr.initial_state(), pr.solid)
-        for _ in range(2):
-            s = chunk(s, solid)
-        return np.asarray(jax.device_get(s))
-
-    ref = run((1, 1), "jax")
-    got = run((1, 1), "pallas")
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-    got2 = run((2, 1), "pallas")
-    np.testing.assert_allclose(got2, ref, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.parametrize("n_sub", [2,
-                                   pytest.param(3, marks=pytest.mark.slow)])
-@pytest.mark.slow
-def test_bouzidi_3d_blocked_pallas_matches_jax(n_sub, monkeypatch):
-    """Bouzidi through the 3-D y-tiled N-step blocked cascade (VERDICT r4
-    #1): the q tile is widened to the full buffer height (halo rows via
-    qb/qt DMAs + ring_rows_3d of the link table) and the cut-link rewrite
-    covers halo rows, whose post-BC values feed the center during later
-    substeps. Sphere straddles the y shard boundary on the (2, 1) mesh."""
-    monkeypatch.setenv("TPULBM_SUBSTEPS", str(n_sub))
-    params = SimulationParams(nx=48, ny=24, nz=24, problem="cylinder3d",
-                              precision="f32", obstacle_bc="bouzidi",
-                              inlet_velocity=0.05, tau=0.6,
-                              cylinder_radius=0.23)
-    pr = make_problem(params)
-
-    def run(mesh_shape, backend, expect_depths=None):
-        import warnings as _w
-        n = mesh_shape[0] * mesh_shape[1]
-        mesh = make_mesh(mesh_shape, devices=jax.devices()[:n])
-        with _w.catch_warnings():
-            _w.simplefilter("error")          # no silent tier loss
-            chunk = make_chunk_fn(pr, mesh, 2 * n_sub, backend=backend)
-        if expect_depths is not None:
-            assert chunk.pallas3d_depths == expect_depths
-        s, solid = shard_state(mesh, pr.initial_state(), pr.solid)
-        s = chunk(s, solid)
-        return np.asarray(jax.device_get(s))
-
-    ref = run((1, 1), "jax")
-    got = run((1, 1), "pallas", expect_depths=[n_sub])
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-    got2 = run((2, 1), "pallas", expect_depths=[n_sub])
-    np.testing.assert_allclose(got2, ref, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.slow  # fast x-sharded bouzidi rep: the 2-D x-sharded gates above
-def test_bouzidi_3d_xsharded_matches_jax():
-    """x-sharded 3-D bouzidi runs FUSED (x_halo tiles at n_sub == 1: the
-    rewrite touches owned columns only, so the q slab needs no halo
-    exchange) — sphere straddling the x shard boundary, no demotion."""
-    params = SimulationParams(nx=64, ny=16, nz=16, problem="cylinder3d",
-                              precision="f32", obstacle_bc="bouzidi",
-                              inlet_velocity=0.05, tau=0.6,
-                              cylinder_x=0.5, cylinder_radius=0.35)
-    pr = make_problem(params)
-
-    def run(mesh_shape, backend):
-        import warnings as _w
-        n = mesh_shape[0] * mesh_shape[1]
-        mesh = make_mesh(mesh_shape, devices=jax.devices()[:n])
-        with _w.catch_warnings():
-            _w.simplefilter("error")          # no silent tier loss
-            chunk = make_chunk_fn(pr, mesh, 4, backend=backend)
-        s, solid = shard_state(mesh, pr.initial_state(), pr.solid)
-        for _ in range(2):
-            s = chunk(s, solid)
-        return np.asarray(jax.device_get(s))
-
-    ref = run((1, 1), "jax")
-    for ms in [(1, 2), (2, 2)]:
-        got = run(ms, "pallas")
-        np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
 def test_super_chunk_and_runner_smoke(tmp_path):
     # end-to-end: the runner's super-chunk path threads the q table
     from tpulbm.runner import Runner
     rp = _cyl_params(precision="f32").replace(
         num_timesteps=200, output_frequency=50, enable_vtk=False,
-        output_dir=str(tmp_path), backend="jax")
+        output_dir=str(tmp_path))
     res = Runner(rp, verbose=False).run(resume=False)
     assert res.success
     assert (tmp_path / "forces.csv").exists()

@@ -1,4 +1,4 @@
-"""Lid-driven cavity model: moving-wall BC, pallas==jax equivalence, and
+"""Lid-driven cavity model: moving-wall BC, and
 the Ghia, Ghia & Shin (1982) benchmark structure at Re=100.
 
 New capability — the reference hard-codes the cylinder channel
@@ -15,8 +15,6 @@ from tpulbm.lattice import D2Q9
 from tpulbm.models import make_problem
 from tpulbm.models.cavity import tau_for_cavity_reynolds
 from tpulbm.ops.step_jax import make_step_rolled
-from tpulbm.parallel.mesh import make_mesh
-from tpulbm.parallel.sharded_step import make_chunk_fn, shard_state
 
 
 def _params(n=64, re=100.0, u=0.1, **kw):
@@ -74,59 +72,6 @@ def test_moving_wall_momentum_correction_values():
         np.asarray(f[6])[3] + U / 6.0 * rho[3], rtol=1e-12)
     # rows below the wall untouched
     np.testing.assert_allclose(np.asarray(out[7])[:3], np.asarray(f[7])[:3])
-
-
-def _run_chunks(params, mesh_shape, backend, chunk_len=6, n_chunks=2,
-                env=None):
-    import os
-    env = env or {}
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        problem = make_problem(params)
-        n_dev = mesh_shape[0] * mesh_shape[1]
-        mesh = make_mesh(mesh_shape, devices=jax.devices()[:n_dev])
-        chunk = make_chunk_fn(problem, mesh, chunk_len, backend=backend)
-        f, solid = shard_state(mesh, problem.initial_state(),
-                               np.zeros(problem.spatial_shape, bool))
-        for _ in range(n_chunks):
-            f = chunk(f, solid)
-        return np.asarray(jax.device_get(f))
-    finally:
-        for k in env:
-            os.environ.pop(k, None)
-            if old[k] is not None:
-                os.environ[k] = old[k]
-
-
-@pytest.mark.parametrize("mesh_shape,env", [
-    # the fast single-device rep pins the 1-step kernel (the corner
-    # closures make the cascade's interpret compile ~3x slower on 1 core;
-    # the blocked+tiled cavity gate in the slow lane covers the cascade)
-    ((1, 1), {"TPULBM_SUBSTEPS": "1"}),
-    pytest.param((2, 1), None, marks=pytest.mark.slow),
-    pytest.param((2, 2), None, marks=pytest.mark.slow),
-], ids=["single", "y-sharded", "2d-mesh"])
-def test_cavity_pallas_matches_jax(mesh_shape, env):
-    params = _params(n=64, precision="f32")
-    ref = _run_chunks(params, (1, 1), "jax")
-    got = _run_chunks(params, mesh_shape, "pallas", env=env)
-    # atol 5e-7: the corner-closure residual cancels ~0.5-magnitude terms
-    # down to ~1e-5 values, so its f32 absolute error is ~1e-7
-    np.testing.assert_allclose(got, ref, rtol=2e-5, atol=5e-7)
-
-
-@pytest.mark.slow
-def test_cavity_pallas_blocked_and_tiled(monkeypatch):
-    # temporal blocking (ghost-row chains hit _bc_row_values' x-wall
-    # columns) and the x-tiled kernel path
-    params = _params(n=64, precision="f32")
-    ref = _run_chunks(params, (1, 1), "jax", chunk_len=8, n_chunks=2)
-    b2 = _run_chunks(params, (1, 1), "pallas", chunk_len=8, n_chunks=2,
-                     env={"TPULBM_SUBSTEPS": "2"})
-    np.testing.assert_allclose(b2, ref, rtol=2e-5, atol=5e-7)
-    tiled = _run_chunks(params, (1, 2), "pallas", chunk_len=8, n_chunks=2)
-    np.testing.assert_allclose(tiled, ref, rtol=2e-5, atol=5e-7)
 
 
 def test_cavity_rest_state_is_fixed_point():

@@ -6,9 +6,7 @@ Gates: the projector algebra is exact (complementary idempotents,
 conservation to machine precision); the operator degenerates EXACTLY to
 BGK when the higher-order deviation vanishes and at equilibrium; shear
 viscosity is untouched (Taylor-Green ν_eff); the canonical Re = 30,000
-double shear layer that diverges under BGK runs stably; pallas == jax on
-the fused kernel tiers."""
-import warnings
+double shear layer that diverges under BGK runs stably."""
 
 import jax
 import jax.numpy as jnp
@@ -20,8 +18,6 @@ from tpulbm.config import SimulationParams, validate_params
 from tpulbm.lattice import D2Q9
 from tpulbm.models import make_problem
 from tpulbm.ops.step_jax import make_step_rolled
-from tpulbm.parallel.mesh import make_mesh
-from tpulbm.parallel.sharded_step import make_chunk_fn, shard_state
 
 
 def test_projector_algebra_and_conservation():
@@ -117,50 +113,6 @@ def test_kbc_stabilizes_double_shear_layer():
     assert not run(physics.collide), "BGK unexpectedly stable — raise Re"
     assert run(physics.collide_kbc), \
         "KBC failed to stabilize the shear layer"
-
-
-# fast lane keeps the single-device rep (the operator algebra in the
-# kernel); mesh/blocking variants reuse machinery gated fast elsewhere
-@pytest.mark.parametrize("mesh_shape,blocked",
-                         [((1, 1), False),
-                          pytest.param((2, 1), False,
-                                       marks=pytest.mark.slow),
-                          pytest.param((1, 2), False,
-                                       marks=pytest.mark.slow),
-                          pytest.param((1, 1), True,
-                                       marks=pytest.mark.slow)],
-                         ids=["single", "y-sharded", "x-tiled", "blocked"])
-def test_kbc_pallas_matches_oracle(mesh_shape, blocked, monkeypatch):
-    params = SimulationParams(nx=128, ny=32, precision="f32",
-                              collision="kbc")
-    pr = make_problem(params)
-    step = jax.jit(make_step_rolled(pr))
-    s_ref = jnp.asarray(pr.initial_state())
-    for _ in range(12):
-        s_ref = step(s_ref)
-    s_ref = np.asarray(jax.device_get(s_ref))
-    if blocked:
-        monkeypatch.setenv("TPULBM_SUBSTEPS", "3")
-        monkeypatch.setenv("TPULBM_PALLAS_TY", "4")
-    elif mesh_shape == (1, 1):
-        # fast rep pins the 1-step kernel: the N-cascade instantiates the
-        # entropic collide N times and triples the interpret-mode compile
-        # on 1 core; the cascade (and kbc-in-cascade) is gated in the slow
-        # lane and by the other fast cascade reps
-        monkeypatch.setenv("TPULBM_SUBSTEPS", "1")
-    n = mesh_shape[0] * mesh_shape[1]
-    mesh = make_mesh(mesh_shape, devices=jax.devices()[:n])
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")      # fallback warning = lost tier
-        chunk = make_chunk_fn(pr, mesh, 6, backend="pallas")
-    if blocked:
-        monkeypatch.delenv("TPULBM_SUBSTEPS")
-        monkeypatch.delenv("TPULBM_PALLAS_TY")
-    s, solid = shard_state(mesh, pr.initial_state(), pr.solid)
-    for _ in range(2):
-        s = chunk(s, solid)
-    d = np.abs(np.asarray(jax.device_get(s)) - s_ref)
-    assert d.max() / np.abs(s_ref).max() < 3e-5, d.max()
 
 
 def test_kbc_rejected_in_3d():

@@ -8,7 +8,6 @@ spectrum pipeline runs end-to-end.
 
 New capability — the reference's only forcing is a uniform constant in
 dead code (LBMUtils.h:15-19)."""
-import warnings
 
 import jax
 import jax.numpy as jnp
@@ -88,7 +87,8 @@ def test_spinup_from_rest_matches_linear_solution():
         assert abs(a_meas / a_exp - 1.0) < 0.02, (t, a_meas, a_exp)
 
 
-@pytest.mark.parametrize("mesh_shape", [(2, 1), (2, 2)], ids=["y", "2d"])
+@pytest.mark.parametrize("mesh_shape", [(2, 1), (2, 2), (1, 2), (4, 2)],
+                         ids=["y", "2d", "x", "4x2"])
 def test_sharded_matches_oracle(mesh_shape):
     """The padded-block force (global coords offset−1…n, periodic wrap at
     halo cells) must reproduce the oracle."""
@@ -101,154 +101,13 @@ def test_sharded_matches_oracle(mesh_shape):
     s_ref = np.asarray(jax.device_get(s_ref))
     n = mesh_shape[0] * mesh_shape[1]
     mesh = make_mesh(mesh_shape, devices=jax.devices()[:n])
-    chunk = make_chunk_fn(pr, mesh, 5, backend="jax")
+    chunk = make_chunk_fn(pr, mesh, 5)
     s, solid = shard_state(mesh, pr.initial_state(),
                            np.zeros((params.ny, params.nx), bool))
     s = chunk(s, solid)
     s = chunk(s, solid)
     np.testing.assert_allclose(np.asarray(jax.device_get(s)), s_ref,
                                rtol=1e-12, atol=1e-15)
-
-
-# fast force-fn reps: blocked_force[N2] (same in-kernel force code in the
-# cascade) and the x-tiled (2,2) N=2 gate; 1-step variants are slow-lane
-@pytest.mark.parametrize("mesh_shape",
-                         [pytest.param((1, 1), marks=pytest.mark.slow),
-                          pytest.param((2, 1), marks=pytest.mark.slow)],
-                         ids=["1dev", "y"])
-def test_pallas_force_matches_jax(mesh_shape):
-    """The fused path evaluates the force IN-KERNEL from global
-    coordinates rebuilt with broadcasted_iota + the shard y offset
-    (flags[4], step_pallas._collide_rows) — it must match the jax tier's
-    padded-block force to f32 roundoff, including at shard-boundary halo
-    rows (unwrapped −1/nyl coords on both tiers)."""
-    params = _params(precision="f32", nx=128, kolmogorov_n=2)
-    pr = make_problem(params)
-    solid = np.zeros((params.ny, params.nx), bool)
-    n = mesh_shape[0] * mesh_shape[1]
-    mesh = make_mesh(mesh_shape, devices=jax.devices()[:n])
-    cj = make_chunk_fn(pr, mesh, 10, backend="jax")
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")  # fused: no demotion warning allowed
-        cp = make_chunk_fn(pr, mesh, 10, backend="pallas")
-    sj, sd = shard_state(mesh, pr.initial_state(), solid)
-    sp, _ = shard_state(mesh, pr.initial_state(), solid)
-    a = np.asarray(jax.device_get(cj(sj, sd)))
-    b = np.asarray(jax.device_get(cp(sp, sd)))
-    np.testing.assert_allclose(b, a, atol=5e-7, rtol=0)
-
-
-@pytest.mark.parametrize("n_sub,mesh_shape",
-                         [(2, (1, 1)),
-                          pytest.param(3, (1, 1),
-                                       marks=pytest.mark.slow),
-                          pytest.param(4, (1, 1), marks=pytest.mark.slow),
-                          pytest.param(3, (2, 1),
-                                       marks=pytest.mark.slow)],
-                         ids=["N2", "N3", "N4", "N3-sharded"])
-def test_pallas_blocked_force_matches_jax(n_sub, mesh_shape, monkeypatch):
-    """Temporal blocking with a spatially varying force: every collide
-    site in the N-step cascade (raw slabs, ghost-chain rows at the
-    unwrapped -N..-1 / nyl..nyl+N-1 offsets, intermediate stages) adds
-    the force at its fixed global-y coordinates, so the blocked kernels
-    must match the jax tier exactly like the 1-step kernel does."""
-    from tpulbm.ops.step_pallas import (make_local_step_pallas2,
-                                        make_local_step_pallasN)
-    params = _params(precision="f32", nx=128, ny=64, kolmogorov_n=2)
-    pr = make_problem(params)
-    monkeypatch.setenv("TPULBM_PALLAS_TY", "4")
-    nyl = params.ny // mesh_shape[0]
-    builder = (make_local_step_pallas2 if n_sub == 2 else
-               lambda p, s, interpret: make_local_step_pallasN(
-                   p, s, n_sub, interpret=interpret))
-    assert builder(pr, (nyl, params.nx), interpret=True) is not None
-    monkeypatch.setenv("TPULBM_SUBSTEPS", str(n_sub))
-    solid = np.zeros((params.ny, params.nx), bool)
-    n = mesh_shape[0] * mesh_shape[1]
-    mesh = make_mesh(mesh_shape, devices=jax.devices()[:n])
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")  # fused: no demotion warning allowed
-        cp = make_chunk_fn(pr, mesh, 12, backend="pallas")
-    monkeypatch.delenv("TPULBM_SUBSTEPS")
-    monkeypatch.delenv("TPULBM_PALLAS_TY")
-    cj = make_chunk_fn(pr, mesh, 12, backend="jax")
-    sj, sd = shard_state(mesh, pr.initial_state(), solid)
-    sp, _ = shard_state(mesh, pr.initial_state(), solid)
-    a = np.asarray(jax.device_get(cj(sj, sd)))
-    b = np.asarray(jax.device_get(cp(sp, sd)))
-    np.testing.assert_allclose(b, a, atol=5e-7, rtol=0)
-
-
-@pytest.mark.parametrize("axis,n_sub,mesh_shape",
-                         [pytest.param("y", 1, (1, 2),
-                                       marks=pytest.mark.slow),
-                          pytest.param("x", 1, (1, 2),
-                                       marks=pytest.mark.slow),
-                          ("x", 2, (2, 2))],
-                         ids=["Fy-x2", "Fx-x2", "Fx-2x2-N2"])
-def test_pallas_x_sharded_force_fused(axis, n_sub, mesh_shape, monkeypatch):
-    """x-sharded meshes run force_fn problems through the x-tiled kernel:
-    flags[5] carries the shard's global x offset and each tile adds its
-    tx·Tx − H buffer origin, so in-kernel coordinates stay global. The
-    'x' cases rotate the force to F_y(x) = F0·cos(κx) — a force the
-    per-tile x offsets must get exactly right (a pure-y force would mask
-    an x-coordinate bug); halo columns at the wrapped west edge use the
-    unwrapped −H..−1 coords that the periodic cosine wraps analytically."""
-    import dataclasses
-    params = _params(precision="f32", nx=128, ny=32, kolmogorov_n=2)
-    pr = make_problem(params)
-    if axis == "x":
-        import jax.numpy as jnp_
-        kx = 2.0 * np.pi * 2 / params.nx
-        f0 = kolmogorov_f0(params)
-        pr = dataclasses.replace(
-            pr, force_fn=lambda c: (0.0, f0 * jnp_.cos(kx * c["xx"])))
-    if n_sub > 1:
-        monkeypatch.setenv("TPULBM_SUBSTEPS", str(n_sub))
-    solid = np.zeros((params.ny, params.nx), bool)
-    n = mesh_shape[0] * mesh_shape[1]
-    mesh = make_mesh(mesh_shape, devices=jax.devices()[:n])
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")  # fused: no demotion warning allowed
-        cp = make_chunk_fn(pr, mesh, 4, backend="pallas")
-    if n_sub > 1:
-        monkeypatch.delenv("TPULBM_SUBSTEPS")
-    cj = make_chunk_fn(pr, mesh, 4, backend="jax")
-    sj, sd = shard_state(mesh, pr.initial_state(), solid)
-    sp, _ = shard_state(mesh, pr.initial_state(), solid)
-    a = np.asarray(jax.device_get(cj(sj, sd)))
-    b = np.asarray(jax.device_get(cp(sp, sd)))
-    np.testing.assert_allclose(b, a, atol=5e-7, rtol=0)
-
-
-@pytest.mark.slow  # fast lane-pad rep: tiled wrap-self periodic gate
-def test_pallas_lane_padded_periodic_force(monkeypatch):
-    """Unaligned periodic grids route to the x-tiled kernel with lane
-    padding (shadow wrap columns). The pad columns' unwrapped
-    coordinates (nx..nx+pad−1 on the east shard) must wrap analytically
-    through a periodic x-varying force — TPULBM_FORCE_PAD simulates the
-    TPU 128-lane rule in interpret mode."""
-    import dataclasses
-    import jax.numpy as jnp_
-    monkeypatch.setenv("TPULBM_FORCE_PAD", "8")
-    params = _params(precision="f32", nx=120, ny=32, kolmogorov_n=2)
-    pr = make_problem(params)
-    kx = 2.0 * np.pi * 2 / params.nx
-    f0 = kolmogorov_f0(params)
-    pr = dataclasses.replace(
-        pr, force_fn=lambda c: (0.0, f0 * jnp_.cos(kx * c["xx"])))
-    solid = np.zeros((params.ny, params.nx), bool)
-    mesh = make_mesh((1, 1), devices=jax.devices()[:1])
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")  # fused: no demotion warning allowed
-        cp = make_chunk_fn(pr, mesh, 4, backend="pallas")
-    monkeypatch.delenv("TPULBM_FORCE_PAD")
-    cj = make_chunk_fn(pr, mesh, 4, backend="jax")
-    sj, sd = shard_state(mesh, pr.initial_state(), solid)
-    sp, _ = shard_state(mesh, pr.initial_state(), solid)
-    a = np.asarray(jax.device_get(cj(sj, sd)))
-    b = np.asarray(jax.device_get(cp(sp, sd)))
-    np.testing.assert_allclose(b, a, atol=5e-7, rtol=0)
 
 
 @pytest.mark.slow
@@ -308,60 +167,13 @@ def test_3d_spinup_from_rest_matches_linear_solution():
     assert abs(a_meas / a_exp - 1.0) < 0.02, (a_meas, a_exp)
 
 
-def test_3d_pallas_force_matches_jax():
-    """The full-plane 3-D kernel evaluates the force per z-plane in-kernel
-    (zz = traced plane index, yy/xx iota); wrapped z ring planes use the
-    unwrapped −1/nz coords. Must match the jax tier."""
-    params = _params3(precision="f32", nx=32, ny=8, nz=8)
-    pr = make_problem(params)
-    solid = np.zeros(pr.spatial_shape, bool)
-    mesh = make_mesh((1, 1), devices=jax.devices()[:1])
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")        # no silent tier loss
-        cp = make_chunk_fn(pr, mesh, 5, backend="pallas")
-    cj = make_chunk_fn(pr, mesh, 5, backend="jax")
-    sj, sd = shard_state(mesh, pr.initial_state(), solid)
-    sp, _ = shard_state(mesh, pr.initial_state(), solid)
-    for _ in range(2):
-        sj = cj(sj, sd)
-        sp = cp(sp, sd)
-    a = np.asarray(jax.device_get(sj))
-    b = np.asarray(jax.device_get(sp))
-    np.testing.assert_allclose(b, a, atol=3e-6, rtol=0)
-
-
-@pytest.mark.slow  # fast 3-D force rep: test_3d_pallas_force_matches_jax
-def test_3d_sharded_force_tiled_pallas_matches_jax():
-    """Sharded 3-D Kolmogorov runs the y-tiled kernel with per-tile force
-    coordinates (flags[4]/flags[5] global offsets + tyi*Ty - H) and
-    in-kernel wrapped z ring planes. Must match the jax tier on the same
-    mesh — no demotion warning allowed."""
-    params = _params3(precision="f32", nx=32, ny=16, nz=8)
-    pr = make_problem(params)
-    solid = np.zeros(pr.spatial_shape, bool)
-    mesh = make_mesh((2, 1), devices=jax.devices()[:2])
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")        # no silent tier loss
-        cp = make_chunk_fn(pr, mesh, 4, backend="pallas")
-    cj = make_chunk_fn(pr, mesh, 4, backend="jax")
-    sj, sd = shard_state(mesh, pr.initial_state(), solid)
-    sp, _ = shard_state(mesh, pr.initial_state(), solid)
-    for _ in range(2):
-        sj = cj(sj, sd)
-        sp = cp(sp, sd)
-    a = np.asarray(jax.device_get(sj))
-    b = np.asarray(jax.device_get(sp))
-    np.testing.assert_allclose(b, a, atol=3e-6, rtol=0)
-
-
 def test_runner_end_to_end_with_stats_and_spectrum(tmp_path):
     """Runner + --stats-from + spectra on a short laminar Kolmogorov run:
     the energy spectrum must be concentrated at the forcing shell."""
     from tpulbm.runner import Runner
     from tpulbm.utils.analysis import energy_spectrum
     params = _params(nx=64, ny=64, kolmogorov_n=2, num_timesteps=200,
-                     output_frequency=50, output_dir=str(tmp_path),
-                     backend="jax", enable_vtk=False, stats_from=100,
+                     output_frequency=50, output_dir=str(tmp_path), enable_vtk=False, stats_from=100,
                      precision="f32")
     res = Runner(params, verbose=False).run()
     assert res.success

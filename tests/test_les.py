@@ -1,5 +1,5 @@
-"""Smagorinsky LES closure: closed-form tau_eff, BGK degeneracy, pallas==jax
-equivalence (2-D and 3-D), config validation, and the stabilization gate.
+"""Smagorinsky LES closure: closed-form tau_eff, BGK degeneracy, config
+validation, and the stabilization gate.
 
 New capability — the reference has no turbulence model (its BGK at
 tau -> 1/2 simply diverges; README.md §4 documents the unstable nominal
@@ -14,8 +14,6 @@ from tpulbm.config import SimulationParams, validate_params
 from tpulbm.lattice import D2Q9, D3Q19
 from tpulbm.models import make_problem
 from tpulbm.ops.step_jax import make_step_rolled
-from tpulbm.parallel.mesh import make_mesh
-from tpulbm.parallel.sharded_step import make_chunk_fn, shard_state
 
 
 def _random_f(lat, shape, seed=0, eps=0.02):
@@ -78,42 +76,6 @@ def test_config_validation():
         validate_params(SimulationParams(smagorinsky=0.17, collision="trt"))
     with pytest.raises(ValueError, match=">= 0"):
         validate_params(SimulationParams(smagorinsky=-0.1))
-
-
-def _run(problem, mesh_shape, backend, n_chunks=2, chunk_len=5):
-    n_dev = mesh_shape[0] * mesh_shape[1]
-    mesh = make_mesh(mesh_shape, devices=jax.devices()[:n_dev])
-    chunk = make_chunk_fn(problem, mesh, chunk_len, backend=backend)
-    solid = problem.solid if problem.solid is not None else \
-        np.zeros(problem.spatial_shape, bool)
-    f, solid = shard_state(mesh, problem.initial_state(), solid)
-    for _ in range(n_chunks):
-        f = chunk(f, solid)
-    return np.asarray(jax.device_get(f))
-
-
-@pytest.mark.parametrize("mesh_shape",
-                         [(1, 1),
-                          pytest.param((2, 2), marks=pytest.mark.slow)],
-                         ids=["single", "2d-mesh"])
-def test_les_pallas_matches_jax_2d(mesh_shape):
-    params = SimulationParams(nx=256, ny=64, tau=0.55, inlet_velocity=0.05,
-                              precision="f32", smagorinsky=0.17)
-    problem = make_problem(params)
-    ref = _run(problem, (1, 1), "jax")
-    got = _run(problem, mesh_shape, "pallas")
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.slow
-def test_les_pallas_matches_jax_3d():
-    params = SimulationParams(nx=128, ny=16, nz=16, problem="cylinder3d",
-                              tau=0.55, inlet_velocity=0.05,
-                              precision="f32", smagorinsky=0.17)
-    problem = make_problem(params)
-    ref = _run(problem, (1, 1), "jax", n_chunks=1, chunk_len=4)
-    got = _run(problem, (1, 1), "pallas", n_chunks=1, chunk_len=4)
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
 
 
 @pytest.mark.slow

@@ -1,8 +1,7 @@
 """MRT collision operator (new capability; the reference is BGK-only).
 
 The operator is applied population-space as f − R (f − feq) with
-R = M⁻¹ S M precomputed (physics.mrt_relax_matrix), identically on the
-jax tier and inside the Pallas kernels. Key invariant gated here: with
+R = M⁻¹ S M precomputed (physics.mrt_relax_matrix), in the XLA tier. Key invariant gated here: with
 every relaxation rate set to 1/tau, R = (1/tau)·I and MRT IS BGK — which
 validates M, M⁻¹ and the rate plumbing in one shot; the Poiseuille gate
 then pins the shear rates to the BGK viscosity nu = (tau − 1/2)/3.
@@ -17,8 +16,6 @@ from tpulbm.config import SimulationParams
 from tpulbm.lattice import D2Q9, D3Q19
 from tpulbm.models import make_problem
 from tpulbm.ops.step_jax import make_step_rolled
-from tpulbm.parallel.mesh import make_mesh
-from tpulbm.parallel.sharded_step import make_chunk_fn, shard_state
 
 
 def _uniform_overrides(lat, inv_tau):
@@ -77,33 +74,6 @@ def test_mrt_conserves_mass_momentum(lat):
     rho1, u1 = physics.moments(lat, f_post)
     np.testing.assert_allclose(np.asarray(rho1), np.asarray(rho0), rtol=1e-12)
     np.testing.assert_allclose(np.asarray(u1), np.asarray(u0), atol=1e-12)
-
-
-@pytest.mark.parametrize("lat", [D2Q9, D3Q19], ids=["d2q9", "d3q19"])
-def test_mrt_rank_correction_matches_dense(lat):
-    # The kernels evaluate R·dev as s_nu·dev + U (V dev) (the rank-r form
-    # that fits Mosaic's scoped-vmem stack); it must match the dense
-    # R = M⁻¹SM on every deviation vector (zero conserved moments — the
-    # only vectors the operator ever sees).
-    inv_tau = 1.0 / 0.63
-    R = physics.mrt_relax_matrix(lat, inv_tau)
-    U, V = physics.mrt_rank_correction(lat, inv_tau)
-    assert U.shape[1] == V.shape[0] > 0
-    M, names = physics._mrt_basis(lat)
-    Minv = np.linalg.inv(M)
-    cons = [k for k, n in enumerate(names) if n in physics._MRT_CONSERVED]
-    rng = np.random.default_rng(3)
-    for _ in range(5):
-        mv = M @ rng.standard_normal(lat.Q)
-        mv[cons] = 0.0
-        d = Minv @ mv
-        np.testing.assert_allclose(inv_tau * d + U @ (V @ d), R @ d,
-                                   rtol=1e-11, atol=1e-12)
-    # uniform rates → rank 0 (MRT degenerates to BGK, kernels skip the
-    # correction loops entirely)
-    Uu, Vu = physics.mrt_rank_correction(
-        lat, inv_tau, overrides=_uniform_overrides(lat, inv_tau))
-    assert Uu.shape == (lat.Q, 0) and Vu.shape == (0, lat.Q)
 
 
 def test_mrt_rest_equilibrium_fixed_point():
@@ -199,57 +169,3 @@ def test_mrt_poiseuille_viscosity():
     resid = profile - np.polyval(coef, np.arange(32))
     assert np.abs(resid).max() < 1e-8
 
-
-def test_mrt_pallas_matches_jax():
-    params = SimulationParams(nx=128, ny=64, tau=0.55, inlet_velocity=0.05,
-                              precision="f32", collision="mrt")
-    problem = make_problem(params)
-    mesh1 = make_mesh((1, 1), devices=jax.devices()[:1])
-
-    def run(backend, mesh):
-        chunk = make_chunk_fn(problem, mesh, 5, backend=backend)
-        f, solid = shard_state(mesh, problem.initial_state(), problem.solid)
-        f = chunk(f, solid)
-        f = chunk(f, solid)
-        return np.asarray(jax.device_get(f))
-
-    ref = run("jax", mesh1)
-    got = run("pallas", mesh1)
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.slow
-def test_mrt_pallas2_matches_jax(monkeypatch):
-    monkeypatch.setenv("TPULBM_PALLAS_TY", "8")
-    params = SimulationParams(nx=128, ny=64, tau=0.55, inlet_velocity=0.05,
-                              precision="f32", collision="mrt")
-    problem = make_problem(params)
-    mesh = make_mesh((1, 1), devices=jax.devices()[:1])
-
-    def run(backend, chunk_len):
-        chunk = make_chunk_fn(problem, mesh, chunk_len, backend=backend)
-        f, solid = shard_state(mesh, problem.initial_state(), problem.solid)
-        f = chunk(f, solid)
-        return np.asarray(jax.device_get(f))
-
-    ref = run("jax", 6)
-    got = run("pallas", 6)  # even chunk → 2-step kernel engages
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.slow
-def test_mrt_3d_pallas_matches_jax():
-    params = SimulationParams(nx=32, ny=16, nz=8, problem="cylinder3d",
-                              tau=0.6, inlet_velocity=0.05, precision="f32",
-                              collision="mrt")
-    problem = make_problem(params)
-    mesh = make_mesh((1, 1), devices=jax.devices()[:1])
-
-    def run(backend):
-        chunk = make_chunk_fn(problem, mesh, 3, backend=backend)
-        f, solid = shard_state(mesh, problem.initial_state(), problem.solid)
-        f = chunk(f, solid)
-        return np.asarray(jax.device_get(f))
-
-    np.testing.assert_allclose(run("pallas"), run("jax"), rtol=5e-6,
-                               atol=1e-7)

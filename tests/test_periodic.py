@@ -7,7 +7,6 @@ exact Navier-Stokes solution, so the simulated field is compared against
 the analytic field AND the measured energy-decay rate must recover
 nu = (tau - 1/2)/3 to a fraction of a percent.
 """
-import warnings
 
 import jax
 import jax.numpy as jnp
@@ -83,8 +82,7 @@ def test_runner_applies_init_fields(tmp_path):
     from tpulbm.runner import Runner
     T = 120
     params = _params(num_timesteps=T, output_frequency=60,
-                     output_dir=str(tmp_path), enable_vtk=False,
-                     backend="jax")
+                     output_dir=str(tmp_path), enable_vtk=False)
     res = Runner(params, verbose=False).run(resume=False)
     assert res.success
     import numpy.lib.recfunctions  # noqa: F401  (genfromtxt names path)
@@ -109,7 +107,7 @@ def test_periodic_sharded_matches_oracle(mesh_shape):
     s_ref = np.asarray(jax.device_get(s_ref))
     n = mesh_shape[0] * mesh_shape[1]
     mesh = make_mesh(mesh_shape, devices=jax.devices()[:n])
-    chunk = make_chunk_fn(pr, mesh, 5, backend="jax")
+    chunk = make_chunk_fn(pr, mesh, 5)
     s, solid = shard_state(mesh, pr.initial_state(),
                            np.zeros(pr.spatial_shape, bool))
     for _ in range(2):
@@ -118,38 +116,11 @@ def test_periodic_sharded_matches_oracle(mesh_shape):
                                rtol=1e-13, atol=1e-15)
 
 
-# fast lane keeps single + blocked (the production path); the mesh-shape
-# variants are covered fast at the jax tier (test_periodic_sharded_matches
-# _oracle) and in the slow lane on pallas
-@pytest.mark.parametrize("mesh_shape,ty,tiled",
-                         [((1, 1), "1sub", False),
-                          pytest.param((4, 1), None, False,
-                                       marks=pytest.mark.slow),
-                          pytest.param((1, 1), "8", False,
-                                       marks=pytest.mark.slow),
-                          pytest.param((1, 2), None, False,
-                                       marks=pytest.mark.slow),
-                          pytest.param((2, 2), None, False,
-                                       marks=pytest.mark.slow),
-                          pytest.param((1, 1), None, True,
-                                       marks=pytest.mark.slow)],
-                         ids=["single", "y-sharded", "blocked",
-                              "x-sharded", "2d-mesh", "forced-tiled"])
-def test_periodic_pallas_matches_oracle(mesh_shape, ty, tiled, monkeypatch):
-    # full-width kernels with wrapped rings; ty="8" forces small slabs so
-    # the N-step BLOCKED kernel engages in interpret mode (on TPU it
-    # engages naturally) — the temporal-blocking halo recompute must be
-    # wrap-correct too. x-sharded / forced-tiled cases route to the
-    # x-tiled kernel, whose extended rings wrap diagonally (two-phase
-    # composition: x columns first, then wrapped rows carry the corners).
-    if ty == "1sub":
-        # fast rep pins the 1-step wrapped-ring kernel; the blocked wrap
-        # is its own (slow-lane) case below
-        monkeypatch.setenv("TPULBM_SUBSTEPS", "1")
-    elif ty is not None:
-        monkeypatch.setenv("TPULBM_PALLAS_TY", ty)
-    if tiled:
-        monkeypatch.setenv("TPULBM_FORCE_TILED", "1")
+@pytest.mark.parametrize("mesh_shape", [(1, 1), (4, 1), (1, 2), (2, 2)],
+                         ids=["single", "y-sharded", "x-sharded", "2d-mesh"])
+def test_periodic_triton_matches_oracle(mesh_shape):
+    # the GPU kernel (Pallas interpreter) on a fully periodic box: every
+    # shard edge is a wrapped ring, corners included (two-phase exchange)
     pr = make_problem(_params(precision="f32"))
     step = jax.jit(make_step_rolled(pr))
     s_ref = pr.initial_state()
@@ -158,32 +129,7 @@ def test_periodic_pallas_matches_oracle(mesh_shape, ty, tiled, monkeypatch):
     s_ref = np.asarray(jax.device_get(s_ref))
     n = mesh_shape[0] * mesh_shape[1]
     mesh = make_mesh(mesh_shape, devices=jax.devices()[:n])
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")      # no silent tier loss
-        chunk = make_chunk_fn(pr, mesh, 6, backend="pallas")
-    s, solid = shard_state(mesh, pr.initial_state(),
-                           np.zeros(pr.spatial_shape, bool))
-    for _ in range(2):
-        s = chunk(s, solid)
-    d = np.max(np.abs(np.asarray(jax.device_get(s)) - s_ref))
-    assert d < 1e-5, d
-
-
-@pytest.mark.slow  # fast lane-pad reps: tiled wrap-self + 2-D lane-pad gates
-def test_periodic_pallas_padded_x_sharded():
-    # unaligned width on an x-sharded periodic box: shadow-column lane
-    # padding + wrapped y rings compose
-    pr = make_problem(_params(nx=100, precision="f32"))
-    step = jax.jit(make_step_rolled(pr))
-    s_ref = pr.initial_state()
-    for _ in range(8):
-        s_ref = step(s_ref)
-    s_ref = np.asarray(jax.device_get(s_ref))
-    mesh = make_mesh((1, 2), devices=jax.devices()[:2])
-    import warnings as _w
-    with _w.catch_warnings():
-        _w.simplefilter("error")
-        chunk = make_chunk_fn(pr, mesh, 4, backend="pallas")
+    chunk = make_chunk_fn(pr, mesh, 6, tier="triton", interpret=True)
     s, solid = shard_state(mesh, pr.initial_state(),
                            np.zeros(pr.spatial_shape, bool))
     for _ in range(2):
@@ -200,7 +146,7 @@ def test_shear_layer_preset_runs(tmp_path):
     from tpulbm.runner import Runner
     p = PRESETS["shear-layer"].replace(
         nx=64, ny=64, num_timesteps=200, output_frequency=100,
-        output_dir=str(tmp_path), backend="jax", precision="f32")
+        output_dir=str(tmp_path), precision="f32")
     assert p.collision == "regularized"
     res = Runner(p, verbose=False).run(resume=False)
     assert res.success
@@ -272,7 +218,8 @@ def test_taylor_green_3d_energy_and_mass():
     np.testing.assert_allclose(float(jnp.sum(f)), m0, rtol=1e-12)
 
 
-@pytest.mark.parametrize("mesh_shape", [(2, 1), (2, 2)], ids=["y", "2d"])
+@pytest.mark.parametrize("mesh_shape", [(2, 1), (2, 2), (1, 2), (4, 1)],
+                         ids=["y", "2d", "x", "y4"])
 def test_periodic3d_sharded_matches_oracle(mesh_shape):
     pr = make_problem(_params3d())
     step = jax.jit(make_step_rolled(pr))
@@ -282,7 +229,7 @@ def test_periodic3d_sharded_matches_oracle(mesh_shape):
     s_ref = np.asarray(jax.device_get(s_ref))
     n = mesh_shape[0] * mesh_shape[1]
     mesh = make_mesh(mesh_shape, devices=jax.devices()[:n])
-    chunk = make_chunk_fn(pr, mesh, 4, backend="jax")
+    chunk = make_chunk_fn(pr, mesh, 4)
     s, solid = shard_state(mesh, pr.initial_state(),
                            np.zeros(pr.spatial_shape, bool))
     for _ in range(2):
@@ -290,114 +237,3 @@ def test_periodic3d_sharded_matches_oracle(mesh_shape):
     np.testing.assert_allclose(np.asarray(jax.device_get(s)), s_ref,
                                rtol=1e-13, atol=1e-15)
 
-
-@pytest.mark.slow  # fast 3-D periodic rep: blocked extended sweep [n2]
-def test_periodic3d_pallas_full_plane_matches_oracle():
-    # the full-plane kernel with wrapped z ring planes (interpret mode)
-    pr = make_problem(_params3d(precision="f32"))
-    step = jax.jit(make_step_rolled(pr))
-    s_ref = pr.initial_state()
-    for _ in range(10):
-        s_ref = step(s_ref)
-    s_ref = np.asarray(jax.device_get(s_ref))
-    mesh = make_mesh((1, 1), devices=jax.devices()[:1])
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")        # no silent tier loss
-        chunk = make_chunk_fn(pr, mesh, 5, backend="pallas")
-    s, solid = shard_state(mesh, pr.initial_state(),
-                           np.zeros(pr.spatial_shape, bool))
-    for _ in range(2):
-        s = chunk(s, solid)
-    d = np.max(np.abs(np.asarray(jax.device_get(s)) - s_ref))
-    assert d / np.abs(s_ref).max() < 3e-5, d
-
-
-def _run_periodic3d_pallas(pr, mesh_shape, n_chunks=2, chunk_len=5,
-                           env=None):
-    import os
-    env = env or {}
-    old = {k: os.environ.get(k) for k in env}
-    os.environ.update(env)
-    try:
-        n = mesh_shape[0] * mesh_shape[1]
-        mesh = make_mesh(mesh_shape, devices=jax.devices()[:n])
-        with warnings.catch_warnings():
-            warnings.simplefilter("error")        # no silent tier loss
-            chunk = make_chunk_fn(pr, mesh, chunk_len, backend="pallas")
-        s, solid = shard_state(mesh, pr.initial_state(),
-                               np.zeros(pr.spatial_shape, bool))
-        for _ in range(n_chunks):
-            s = chunk(s, solid)
-        return np.asarray(jax.device_get(s))
-    finally:
-        for k in env:
-            os.environ.pop(k, None)
-            if old[k] is not None:
-                os.environ[k] = old[k]
-
-
-@pytest.mark.slow
-def test_periodic3d_tiled_pallas_matches_oracle():
-    # the y-tiled 1-step kernel wraps fully periodic boxes: y via the
-    # periodic ring rows, x via native lane rolls, z via in-kernel
-    # wrapped ring planes (zc scratch) — forced past the full-plane
-    # kernel on (1,1), then y-sharded (2,1)
-    pr = make_problem(_params3d(precision="f32"))
-    step = jax.jit(make_step_rolled(pr))
-    s_ref = pr.initial_state()
-    for _ in range(10):
-        s_ref = step(s_ref)
-    s_ref = np.asarray(jax.device_get(s_ref))
-    got = _run_periodic3d_pallas(pr, (1, 1),
-                                 env={"TPULBM_FORCE_TILED": "1"})
-    d = np.max(np.abs(got - s_ref))
-    assert d / np.abs(s_ref).max() < 3e-5, d
-    got2 = _run_periodic3d_pallas(pr, (2, 1))
-    d2 = np.max(np.abs(got2 - s_ref))
-    assert d2 / np.abs(s_ref).max() < 3e-5, d2
-
-
-@pytest.mark.parametrize("subs,mesh_shape",
-                         [("2", (1, 1)),
-                          pytest.param("3", (2, 1),
-                                       marks=pytest.mark.slow)],
-                         ids=["n2", "n3-sharded"])
-def test_periodic3d_blocked_extended_sweep(subs, mesh_shape):
-    # temporally blocked periodic boxes run the EXTENDED sweep (iterate
-    # [-N, nz+N), wrapped raw refetches, gated output DMAs) — no zc
-    # scratch, no eq ghosts
-    pr = make_problem(_params3d(precision="f32"))
-    step = jax.jit(make_step_rolled(pr))
-    s_ref = pr.initial_state()
-    for _ in range(12):
-        s_ref = step(s_ref)
-    s_ref = np.asarray(jax.device_get(s_ref))
-    # chunk_len 6 divides by both depths — TPULBM_SUBSTEPS only engages
-    # when it divides the chunk, so an indivisible length would silently
-    # test the 1-step path
-    got = _run_periodic3d_pallas(pr, mesh_shape, n_chunks=2, chunk_len=6,
-                                 env={"TPULBM_FORCE_TILED": "1",
-                                      "TPULBM_SUBSTEPS": subs})
-    d = np.max(np.abs(got - s_ref))
-    assert d / np.abs(s_ref).max() < 3e-5, d
-
-
-@pytest.mark.parametrize("mesh_shape",
-                         [pytest.param((1, 2), marks=pytest.mark.slow),
-                          pytest.param((2, 2), marks=pytest.mark.slow)],
-                         ids=["x-sharded", "2d-mesh"])
-def test_periodic3d_x_sharded_pallas_matches_oracle(mesh_shape):
-    # x-sharded periodic boxes run FUSED through the blocked extended
-    # sweep (VERDICT r4 #3b): ring_cols_3d wraps x (periodic_x ppermute),
-    # ring_rows_ext_3d wraps y with diagonally-wrapped corner data from
-    # the x-first composition, and the sweep's wrapped raw refetches ride
-    # the x-piece DMAs (whbm). No demotion warning allowed.
-    pr = make_problem(_params3d(precision="f32"))
-    step = jax.jit(make_step_rolled(pr))
-    s_ref = pr.initial_state()
-    for _ in range(12):
-        s_ref = step(s_ref)
-    s_ref = np.asarray(jax.device_get(s_ref))
-    got = _run_periodic3d_pallas(pr, mesh_shape, n_chunks=2, chunk_len=6)
-    d = np.max(np.abs(got - s_ref))
-    assert d / np.abs(s_ref).max() < 3e-5, d

@@ -150,11 +150,8 @@ def test_zou_he_clean_corners_enforce_no_slip():
 
 
 def test_clean_corners_run_is_stable_and_matches_away_from_corners():
-    # a short f64 cylinder run with the clean-corner mode (f64 routes to
-    # the jax tier): stays stable, and only corner-adjacent cells differ
-    # from the reference-corner run
-    import warnings
-
+    # a short f64 cylinder run with the clean-corner mode: stays stable,
+    # and only corner-adjacent cells differ from the reference-corner run
     import jax
 
     from tpulbm.config import SimulationParams
@@ -167,9 +164,7 @@ def test_clean_corners_run_is_stable_and_matches_away_from_corners():
                                   precision="f64", zou_he_corners=corners)
         problem = make_problem(params)
         mesh = make_mesh((1, 1), devices=jax.devices()[:1])
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore")
-            chunk = make_chunk_fn(problem, mesh, 4, backend="pallas")
+        chunk = make_chunk_fn(problem, mesh, 4)
         f, solid = shard_state(mesh, problem.initial_state(), problem.solid)
         f = chunk(f, solid)
         return np.asarray(jax.device_get(f))

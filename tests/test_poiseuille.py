@@ -52,7 +52,7 @@ def test_poiseuille_profile_rmse():
 
 @pytest.mark.slow
 def test_poiseuille_profile_rmse_f32():
-    # the TPU production dtype must pass the same physics gate
+    # the f32 production dtype must pass the same physics gate
     params, ux = _run_poiseuille(precision="f32", steps=12000)
     profile = ux[:, 0].astype(np.float64)
     analytic = analytic_profile(params)

@@ -37,7 +37,7 @@ def test_probes_fn_matches_moments():
 def test_runner_writes_probes_csv(tmp_path):
     params = SimulationParams(
         nx=128, ny=32, precision="f32", num_timesteps=300,
-        output_frequency=50, enable_vtk=False, backend="jax",
+        output_frequency=50, enable_vtk=False,
         output_dir=str(tmp_path), probe_points=((0.5, 0.5), (0.9, 0.3)))
     res = Runner(params, verbose=False).run(resume=False)
     assert res.success
@@ -56,7 +56,7 @@ def test_probe_resume_dedup(tmp_path):
     def run(out, steps, resume):
         p = SimulationParams(
             nx=64, ny=32, precision="f32", num_timesteps=steps,
-            output_frequency=50, enable_vtk=False, backend="jax",
+            output_frequency=50, enable_vtk=False,
             checkpoint_every=1, output_dir=out,
             probe_points=((0.5, 0.5),))
         return Runner(p, verbose=False).run(resume=resume)
@@ -96,8 +96,7 @@ def test_thermal_probes_carry_temperature(tmp_path):
         nx=64, ny=32, problem="rayleigh-benard", tau=0.55,
         thermal_tau=0.5704, rayleigh=3000.0, periodic_x=True,
         cylinder_radius=0.0, inlet_velocity=0.0, precision="f32",
-        num_timesteps=200, output_frequency=50, enable_vtk=False,
-        backend="jax", output_dir=str(tmp_path),
+        num_timesteps=200, output_frequency=50, enable_vtk=False, output_dir=str(tmp_path),
         probe_points=((0.5, 0.25),))
     res = Runner(params, verbose=False).run(resume=False)
     assert res.success

@@ -54,7 +54,7 @@ def test_matches_compiled_reference(tmp_path):
     our_dir = tmp_path / "ours"
     params = SimulationParams(nx=nx, ny=ny, tau=tau, inlet_velocity=u,
                               num_timesteps=steps, output_frequency=freq,
-                              precision="f64", backend="jax",
+                              precision="f64",
                               output_dir=str(our_dir), enable_vtk=False)
     result = Runner(params, verbose=False).run()
     assert result.success
@@ -103,8 +103,7 @@ def test_raw_f_state_matches_compiled_reference(tmp_path):
     from tpulbm.ops.step_jax import make_step_rolled
 
     params = SimulationParams(nx=nx, ny=ny, tau=tau, inlet_velocity=u,
-                              num_timesteps=steps, precision="f64",
-                              backend="jax")
+                              num_timesteps=steps, precision="f64")
     problem = make_problem(params)
     step = jax.jit(make_step_rolled(problem))
     f = np.asarray(problem.initial_state())

@@ -16,7 +16,7 @@ from tpulbm.utils import io as io_mod
 def tiny_params(tmp, **kw):
     defaults = dict(nx=64, ny=32, tau=0.6, inlet_velocity=0.05,
                     num_timesteps=60, output_frequency=20,
-                    output_dir=str(tmp), backend="jax", precision="f32")
+                    output_dir=str(tmp), precision="f32")
     defaults.update(kw)
     return SimulationParams(**defaults)
 
@@ -223,28 +223,6 @@ def test_force_writer_resume_drops_overlapping_rows(tmp_path):
     assert rows[3].startswith("40,1.50000000")
 
 
-@pytest.mark.slow
-def test_runner_pallas_backend_matches_jax(tmp_path):
-    # full Runner lifecycle through the pallas path (interpret mode on CPU)
-    outs = {}
-    for backend in ("jax", "pallas"):
-        params = tiny_params(tmp_path / backend, backend=backend,
-                             enable_vtk=False)
-        result = Runner(params, verbose=False).run()
-        assert result.success
-        outs[backend] = open(tmp_path / backend / "forces.csv").read()
-    # identical cadence; near-identical raw forces (f32 rounding between
-    # tiers; the coefficients divide by q≈2.5e-6 on this tiny cylinder and
-    # amplify that noise, so compare the forces themselves)
-    ja = [r.split(",") for r in outs["jax"].splitlines()[1:]]
-    pa = [r.split(",") for r in outs["pallas"].splitlines()[1:]]
-    assert [r[0] for r in ja] == [r[0] for r in pa]
-    for rj, rp in zip(ja, pa):
-        np.testing.assert_allclose([float(v) for v in rp[1:3]],
-                                   [float(v) for v in rj[1:3]], rtol=1e-4,
-                                   atol=5e-6)
-
-
 def test_runner_aborts_on_instability(tmp_path):
     # tau barely above 0.5 with a large impulsive velocity blows up quickly;
     # the runner must abort with success=False and not write final CSVs
@@ -263,7 +241,7 @@ def test_super_chunk_path_matches_interval_path(tmp_path):
     import tpulbm.runner as runner_mod
     base = dict(nx=64, ny=32, tau=0.6, inlet_velocity=0.05,
                 num_timesteps=400, output_frequency=20, enable_vtk=True,
-                precision="f64", backend="jax")
+                precision="f64")
     pa = SimulationParams(output_dir=str(tmp_path / "super"), **base)
     Runner(pa, verbose=False).run()
 

@@ -83,3 +83,48 @@ def test_choose_decomposition_matches_reference_scoring():
     assert (py, px) == (2, 4)
     with pytest.raises(ValueError):
         choose_decomposition(7, 30, 10)  # 7 divides neither dim
+
+
+# Operators and boundary closures the GPU kernel does not cover: they run
+# the XLA tier on every platform (parallel/sharded_step.choose_tier).
+_XLA_ONLY = {
+    "trt": dict(collision="trt"),
+    "mrt": dict(collision="mrt"),
+    "regularized": dict(collision="regularized"),
+    "kbc": dict(collision="kbc"),
+    "les": dict(smagorinsky=0.15),
+    "power-law": dict(power_law_n=0.8),
+    "clean-corners": dict(zou_he_corners="clean"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(_XLA_ONLY))
+def test_xla_only_operators_sharded_match_single_device(name):
+    params = SimulationParams(nx=48, ny=24, tau=0.6, inlet_velocity=0.05,
+                              precision="f64", **_XLA_ONLY[name])
+    problem = make_problem(params)
+    refs = _reference_states(problem, 8)
+    mesh = make_mesh((2, 2), devices=jax.devices()[:4])
+    chunk = make_chunk_fn(problem, mesh, chunk_len=4)
+    assert chunk.tier == "xla"
+    f, solid = shard_state(mesh, problem.initial_state(), problem.solid)
+    for k in range(2):
+        f = chunk(f, solid)
+    np.testing.assert_allclose(np.asarray(f), refs[-1], rtol=1e-11,
+                               atol=1e-13, err_msg=name)
+
+
+def test_cavity_lid_sharded_matches_single_device():
+    params = SimulationParams(nx=32, ny=32, tau=0.8, inlet_velocity=0.1,
+                              problem="cavity", cylinder_radius=0.0,
+                              precision="f64")
+    problem = make_problem(params)
+    refs = _reference_states(problem, 8)
+    mesh = make_mesh((2, 2), devices=jax.devices()[:4])
+    chunk = make_chunk_fn(problem, mesh, chunk_len=4)
+    f, solid = shard_state(mesh, problem.initial_state(),
+                           np.zeros(problem.spatial_shape, bool))
+    for k in range(2):
+        f = chunk(f, solid)
+    np.testing.assert_allclose(np.asarray(f), refs[-1], rtol=1e-11,
+                               atol=1e-13)

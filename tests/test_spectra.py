@@ -74,8 +74,7 @@ def test_spectra_script_end_to_end(tmp_path):
 
     params = SimulationParams(nx=64, ny=64, tau=0.8, problem="taylor-green",
                               inlet_velocity=0.04, num_timesteps=100,
-                              output_frequency=25, output_dir=str(tmp_path),
-                              backend="jax", enable_vtk=False, stats_from=0)
+                              output_frequency=25, output_dir=str(tmp_path), enable_vtk=False, stats_from=0)
     result = Runner(params, verbose=False).run()
     assert result.success
 

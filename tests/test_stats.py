@@ -22,7 +22,7 @@ import jax.numpy as jnp
 def tiny_params(tmp, **kw):
     defaults = dict(nx=64, ny=32, tau=0.6, inlet_velocity=0.05,
                     num_timesteps=200, output_frequency=50,
-                    output_dir=str(tmp), backend="jax", precision="f32",
+                    output_dir=str(tmp), precision="f32",
                     enable_vtk=False, stats_from=0)
     defaults.update(kw)
     return SimulationParams(**defaults)
@@ -40,8 +40,7 @@ def test_super_chunk_stats_match_host_accumulation(tmp_path):
     f0 = problem.initial_state()
     solid = problem.solid
 
-    sup = make_super_chunk_fn(problem, mesh, interval, n_int,
-                              backend="jax", with_stats=True)
+    sup = make_super_chunk_fn(problem, mesh, interval, n_int, with_stats=True)
     f_dev, solid_dev = shard_state(mesh, f0, solid)
     dt_ = problem.dtype
     sp = problem.spatial_shape
@@ -53,7 +52,7 @@ def test_super_chunk_stats_match_host_accumulation(tmp_path):
     cnt, s_rho, s_u, s_uu = jax.device_get(stats)
 
     # host reference: advance interval-by-interval, sample interval starts
-    chunk = make_chunk_fn(problem, mesh, interval, backend="jax")
+    chunk = make_chunk_fn(problem, mesh, interval)
     sample = jax.jit(diagnostics.stats_sample_fn(problem))
     fc, sd = shard_state(mesh, f0, solid)
     h_cnt = 0
@@ -130,7 +129,7 @@ def test_runner_stats_artifact_3d(tmp_path):
     params = SimulationParams(nx=32, ny=16, nz=8, problem="cylinder3d",
                               tau=0.6, inlet_velocity=0.05,
                               num_timesteps=60, output_frequency=20,
-                              output_dir=str(tmp_path), backend="jax",
+                              output_dir=str(tmp_path),
                               precision="f32", enable_vtk=False,
                               cylinder_radius=0.0, stats_from=20)
     result = Runner(params, verbose=False).run()

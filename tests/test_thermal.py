@@ -207,7 +207,7 @@ def test_thermal_sharded_matches_oracle(mesh_shape):
 
     n_dev = mesh_shape[0] * mesh_shape[1]
     mesh = make_mesh(mesh_shape, devices=jax.devices()[:n_dev])
-    chunk = make_chunk_fn(prob, mesh, 6, backend="jax")
+    chunk = make_chunk_fn(prob, mesh, 6)
     s, solid = shard_state(mesh, prob.initial_state(),
                            np.zeros(prob.spatial_shape, bool))
     for _ in range(2):
@@ -222,9 +222,8 @@ def test_thermal_runner_end_to_end(tmp_path):
     from tpulbm.runner import Runner
     params = _params(ny=32, nx=32, ra=3000.0).replace(
         num_timesteps=400, output_frequency=100, enable_vtk=False,
-        output_dir=str(tmp_path), backend="pallas")  # exercises fallback
-    with pytest.warns(UserWarning, match="thermal"):
-        res = Runner(params, verbose=False).run(resume=False)
+        output_dir=str(tmp_path))
+    res = Runner(params, verbose=False).run(resume=False)
     assert res.success
     assert res.stats is not None and "nusselt" in res.stats
     assert 0.9 < res.stats["nusselt"] < 3.0
@@ -245,7 +244,7 @@ def test_thermal_vtk_frames_carry_temperature(tmp_path):
     from tpulbm.runner import Runner
     params = _params(ny=16, nx=16, ra=2000.0).replace(
         num_timesteps=150, output_frequency=50, enable_vtk=True,
-        output_dir=str(tmp_path), backend="jax")
+        output_dir=str(tmp_path))
     assert Runner(params, verbose=False).run(resume=False).success
     frames = sorted((tmp_path / "vtk_output").glob("*.vtk"))
     assert frames, "no VTK frames written"
@@ -260,12 +259,14 @@ def test_thermal_vtk_frames_carry_temperature(tmp_path):
 
 
 @pytest.mark.parametrize("mesh_shape,cs", [((1, 1), 0.0), ((4, 1), 0.0),
-                                           ((2, 2), 0.0), ((1, 1), 0.17)],
-                         ids=["single", "y-sharded", "xy-sharded", "les"])
-def test_thermal_pallas_matches_oracle(mesh_shape, cs):
-    # fused thermal pallas kernel (interpret mode on CPU) vs the rolled
-    # oracle — single-device, y-sharded, and x-sharded (stitched-halo
-    # kernel: periodic-x ring columns + extended y rows)
+                                           ((2, 2), 0.0), ((1, 2), 0.0),
+                                           ((1, 1), 0.17)],
+                         ids=["single", "y-sharded", "xy-sharded",
+                              "x-sharded", "les"])
+def test_thermal_f32_sharded_matches_oracle(mesh_shape, cs):
+    # the production f32 state through the chosen tier (XLA on the CPU
+    # and the GPU: the fused kernel does not cover thermal) vs the rolled
+    # oracle, on every mesh shape and with the LES closure
     from tpulbm.parallel.mesh import make_mesh
     from tpulbm.parallel.sharded_step import make_chunk_fn, shard_state
 
@@ -279,54 +280,14 @@ def test_thermal_pallas_matches_oracle(mesh_shape, cs):
 
     n_dev = mesh_shape[0] * mesh_shape[1]
     mesh = make_mesh(mesh_shape, devices=jax.devices()[:n_dev])
-    chunk = make_chunk_fn(prob, mesh, 6, backend="pallas")
+    chunk = make_chunk_fn(prob, mesh, 6)
+    assert chunk.tier == "xla"
     s, solid = shard_state(mesh, prob.initial_state(),
                            np.zeros(prob.spatial_shape, bool))
     for _ in range(2):
         s = chunk(s, solid)
     np.testing.assert_allclose(np.asarray(jax.device_get(s)),
                                np.asarray(s_ref), rtol=2e-5, atol=1e-6)
-
-
-def test_thermal_pallas_x_halo_padded_matches_oracle(monkeypatch):
-    # PERIODIC-x (Rayleigh-Bénard) x-sharded mesh with a lane-padded
-    # unaligned shard width: the pad columns are live WRAP shadows of the
-    # east neighbor (halo.ring_cols_padded periodic_x) refreshed per step
-    # — no demotion (VERDICT r4 #3d, periodic case)
-    import warnings as _w
-
-    from tpulbm.parallel.mesh import make_mesh
-    from tpulbm.parallel.sharded_step import make_chunk_fn, shard_state
-
-    monkeypatch.setenv("TPULBM_FORCE_PAD", "8")
-    params = _params(ny=32, nx=32, ra=5000.0).replace(precision="f32")
-    prob = make_problem(params)
-    step = jax.jit(make_step_thermal(prob))
-    s_ref = jnp.asarray(prob.initial_state())
-    for _ in range(12):
-        s_ref = step(s_ref)
-
-    mesh = make_mesh((1, 2), devices=jax.devices()[:2])
-    with _w.catch_warnings():
-        _w.simplefilter("error", UserWarning)   # no silent tier loss
-        chunk = make_chunk_fn(prob, mesh, 6, backend="pallas")
-    s, solid = shard_state(mesh, prob.initial_state(),
-                           np.zeros(prob.spatial_shape, bool))
-    for _ in range(2):
-        s = chunk(s, solid)
-    np.testing.assert_allclose(np.asarray(jax.device_get(s)),
-                               np.asarray(s_ref), rtol=2e-5, atol=1e-6)
-
-
-def test_thermal_pallas_fallbacks_warn():
-    from tpulbm.parallel.mesh import make_mesh
-    from tpulbm.parallel.sharded_step import make_chunk_fn
-
-    params = _params(ny=32, nx=32, ra=5000.0)  # f64 → jax tier
-    prob = make_problem(params)
-    mesh = make_mesh((1, 1), devices=jax.devices()[:1])
-    with pytest.warns(UserWarning, match="thermal config"):
-        make_chunk_fn(prob, mesh, 4, backend="pallas")
 
 
 def test_thermal_checkpoint_resume(tmp_path):
@@ -336,7 +297,7 @@ def test_thermal_checkpoint_resume(tmp_path):
     def run(out, steps, resume):
         p = _params(ny=32, nx=32, ra=3000.0).replace(
             num_timesteps=steps, output_frequency=50, enable_vtk=False,
-            checkpoint_every=1, output_dir=out, backend="jax")
+            checkpoint_every=1, output_dir=out)
         return Runner(p, verbose=False).run(resume=resume)
 
     a, b = str(tmp_path / "a"), str(tmp_path / "b")

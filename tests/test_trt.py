@@ -2,15 +2,12 @@
 import jax
 import jax.numpy as jnp
 import numpy as np
-import pytest
 
 from tpulbm import physics
 from tpulbm.config import SimulationParams
 from tpulbm.lattice import D2Q9
 from tpulbm.models import make_problem
 from tpulbm.ops.step_jax import make_step_rolled
-from tpulbm.parallel.mesh import make_mesh
-from tpulbm.parallel.sharded_step import make_chunk_fn, shard_state
 
 
 def test_trt_conserves_mass_momentum():
@@ -66,39 +63,3 @@ def test_trt_poiseuille_viscosity():
     resid = profile - np.polyval(coef, np.arange(32))
     assert np.abs(resid).max() < 1e-8
 
-
-def test_trt_pallas_matches_jax():
-    params = SimulationParams(nx=128, ny=64, tau=0.55, inlet_velocity=0.05,
-                              precision="f32", collision="trt")
-    problem = make_problem(params)
-    mesh1 = make_mesh((1, 1), devices=jax.devices()[:1])
-
-    def run(backend, mesh):
-        chunk = make_chunk_fn(problem, mesh, 5, backend=backend)
-        f, solid = shard_state(mesh, problem.initial_state(), problem.solid)
-        f = chunk(f, solid)
-        f = chunk(f, solid)
-        return np.asarray(jax.device_get(f))
-
-    ref = run("jax", mesh1)
-    got = run("pallas", mesh1)
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)
-
-
-@pytest.mark.slow  # fast TRT-in-kernel rep: test_trt_pallas_matches_jax (1-step)
-def test_trt_pallas2_matches_jax(monkeypatch):
-    monkeypatch.setenv("TPULBM_PALLAS_TY", "8")
-    params = SimulationParams(nx=128, ny=64, tau=0.55, inlet_velocity=0.05,
-                              precision="f32", collision="trt")
-    problem = make_problem(params)
-    mesh = make_mesh((1, 1), devices=jax.devices()[:1])
-
-    def run(backend, chunk_len):
-        chunk = make_chunk_fn(problem, mesh, chunk_len, backend=backend)
-        f, solid = shard_state(mesh, problem.initial_state(), problem.solid)
-        f = chunk(f, solid)
-        return np.asarray(jax.device_get(f))
-
-    ref = run("jax", 6)
-    got = run("pallas", 6)  # even chunk → 2-step kernel engages
-    np.testing.assert_allclose(got, ref, rtol=5e-6, atol=1e-7)

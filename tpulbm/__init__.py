@@ -1,11 +1,11 @@
-"""tpulbm — a TPU-native Lattice Boltzmann framework.
+"""tpulbm — a Lattice Boltzmann framework on JAX.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of
 LGMOak/HighPerformanceComputing-LatticeBoltzmannMethod (a hybrid
 MPI + OpenMP + AVX2 C++20 D2Q9 solver): same physics, same artifacts, same
-analysis scripts — but designed for TPU hardware: SoA population-major
-layout, fused collide-stream Pallas kernels, `shard_map` + `ppermute` halo
-exchange over a 2-D device mesh, and `lax.scan`-chunked time stepping.
+analysis scripts — with SoA population-major layout, a fused collide-stream
+GPU kernel (Pallas through Triton), `shard_map` + `ppermute` halo exchange
+over a 2-D device mesh, and `lax.scan`-chunked time stepping.
 """
 
 from .config import PRESETS, SimulationParams, tau_for_reynolds

@@ -1,6 +1,6 @@
 """Simulation configuration.
 
-TPU-native equivalent of the reference's `SimulationParams`
+The equivalent of the reference's `SimulationParams`
 (reference: include/LBMConfig.h:36-66), upgraded from compile-time header
 constants to a frozen dataclass with named presets, JSON round-trip, and CLI
 parsing — the reference has no config system at all (main.cpp ignores argv,
@@ -51,8 +51,7 @@ class SimulationParams:
     # --- new capabilities (absent from the reference) ---
     problem: str = "cylinder"        # "cylinder" | "poiseuille" | "cavity" | "cylinder3d"
     obstacle_bc: str = "equilibrium"  # "equilibrium" (reference parity) |
-    # "bounce_back" (full-way) | "bouzidi" (curved-wall interpolated;
-    # fused into the pallas kernels on every mesh shape)
+    # "bounce_back" (full-way) | "bouzidi" (curved-wall interpolated)
     collision: str = "bgk"           # "bgk" (reference parity) | "trt" |
     # "mrt" | "regularized" | "kbc" (new: stable at low tau)
     trt_magic: float = 3.0 / 16.0    # TRT magic parameter Λ
@@ -101,8 +100,7 @@ class SimulationParams:
     buoyancy: float = 0.0
     body_force: tuple[float, ...] = ()  # Guo-style forcing (ref dead code LBMUtils.h:15-19)
     periodic_x: bool = False         # poiseuille channel uses periodic x
-    precision: str = "f32"           # "f32" (TPU-native) | "f64" (validation)
-    backend: str = "pallas"          # "pallas" | "jax" step implementation
+    precision: str = "f32"           # "f32" (production) | "f64" (validation)
     mesh_shape: tuple[int, int] = (1, 1)  # (devices along y, devices along x)
     checkpoint_every: int = 0        # chunks between checkpoints; 0 = off
     checkpoint_dir: str = "checkpoints"
@@ -130,7 +128,7 @@ class SimulationParams:
     # Zou-He corner treatment at the 4 wall-inlet/outlet cells:
     # "reference" composes the sequential edge updates exactly as the
     # reference does; "clean" applies the Zou & He (1997) corner-node
-    # closure (u = v = 0, density residual split) on every backend
+    # closure (u = v = 0, density residual split) on every step tier
     zou_he_corners: str = "reference"
 
     # ---- derived quantities (parity with LBMConfig.h:53-65) ----
@@ -181,6 +179,10 @@ class SimulationParams:
     @classmethod
     def from_dict(cls, d: dict[str, Any]) -> "SimulationParams":
         d = dict(d)
+        # configs and checkpoints written while the step implementation
+        # was a user option carry a "backend" field; the platform picks it
+        # now (parallel/sharded_step.choose_tier)
+        d.pop("backend", None)
         for key in ("body_force", "mesh_shape"):
             if key in d and isinstance(d[key], list):
                 d[key] = tuple(d[key])
@@ -356,7 +358,6 @@ def add_cli_args(parser: argparse.ArgumentParser) -> None:
                              "'e=1.64,qx=1.2' (moment names per "
                              "physics._mrt_basis)")
     parser.add_argument("--precision", choices=["f32", "f64"], default=None)
-    parser.add_argument("--backend", choices=["pallas", "jax"], default=None)
     parser.add_argument("--mesh", type=str, default=None,
                         help="device mesh as 'NYxNX', e.g. 2x4; 'auto' to choose")
     parser.add_argument("--output-dir", type=str, default=None)
@@ -393,7 +394,7 @@ def params_from_args(args: argparse.Namespace) -> SimulationParams:
                   "num_timesteps",
                   "output_frequency", "vtk_start_step", "checkpoint_every",
                   "stats_from", "kolmogorov_n",
-                  "problem", "precision", "backend", "output_dir",
+                  "problem", "precision", "output_dir",
                   "checkpoint_dir", "vtk_format", "zou_he_corners",
                   "lattice3d"):
         val = getattr(args, field, None)

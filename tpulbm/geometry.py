@@ -1,6 +1,6 @@
 """Obstacle geometry: solid-cell masks.
 
-TPU-native equivalent of the reference's per-cell cylinder rasterization
+The equivalent of the reference's per-cell cylinder rasterization
 (LBMGrid.h:152-183): instead of an OpenMP loop over local cells with global
 coordinates, we build the full boolean mask with one broadcasted expression;
 sharding later slices it per device.

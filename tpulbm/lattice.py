@@ -1,6 +1,6 @@
 """Lattice descriptors (D2Q9, D3Q19).
 
-TPU-native equivalent of the reference's compile-time lattice constants
+The equivalent of the reference's compile-time lattice constants
 (reference: include/LBMConfig.h:9-34 — Q, D, VELOCITIES, WEIGHTS, OPPOSITE).
 
 We keep the *exact same direction ordering* as the reference so every piece of

@@ -1,6 +1,6 @@
 """Flagship model: 2-D flow around a cylinder (von Kármán vortex street).
 
-TPU-native rebuild of the reference's one hard-coded setup:
+A rebuild of the reference's one hard-coded setup:
 channel with bounce-back walls (top/bottom), Zou-He velocity inlet (left),
 Zou-He pressure outlet (right), solid cylinder (LBMSolver.h:147-265,
 LBMGrid.h:152-183).

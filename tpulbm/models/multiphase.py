@@ -40,8 +40,8 @@ def make_problem(params: SimulationParams) -> Problem:
                                  (ny, nx))
     rho_map = np.where(liquid, rho_l, rho_v).astype(np.float64)
     # init_rho doubles as the phantom wall density the ψ stencil reads
-    # beyond the walls (it feeds ghost_ring_values, so the oracle, padded
-    # and pallas tiers all see the same wall fluid): > 1 wets, < 1 repels
+    # beyond the walls (it feeds ghost_ring_values, so the oracle and the
+    # padded tier see the same wall fluid): > 1 wets, < 1 repels
     wall_rho = params.mp_wall_rho or 1.0
     return Problem(
         params=params,

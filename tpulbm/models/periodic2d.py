@@ -26,8 +26,7 @@ layer. New capability — the reference has no periodic-box mode at all
 
 Both initialize via Problem.init_fields (equilibrium at an analytic
 (rho, u) field) and run with periodic_y=True — the halo machinery wraps
-the y rings (parallel/halo.py) and the fused Pallas kernels treat every
-slab as interior.
+the y rings (parallel/halo.py), so no shard has a physical y edge.
 """
 from __future__ import annotations
 

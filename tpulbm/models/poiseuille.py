@@ -18,11 +18,9 @@ from .base import Problem
 def make_problem(params: SimulationParams) -> Problem:
     if params.is_3d:
         # 3-D square/rectangular duct: periodic in x, no-slip walls in y
-        # AND z (a mixed-periodicity duct — the jax tier and the y-tiled
-        # pallas kernel both run it fused; x pulls are native lane rolls,
-        # which wrap, and no x-edge strip fires because the periodic_x
-        # flags are zeroed). Gate: the analytic rectangular-duct series
-        # (analytic_profile_duct), tests/test_duct3d.py.
+        # AND z (a mixed-periodicity duct). Gate: the analytic
+        # rectangular-duct series (analytic_profile_duct),
+        # tests/test_duct3d.py.
         from ..lattice import D3Q19, D3Q27
         lat = D3Q27 if params.lattice3d == "d3q27" else D3Q19
         force = tuple(params.body_force) or (1e-5, 0.0)

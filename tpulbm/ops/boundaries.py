@@ -1,6 +1,6 @@
 """Boundary conditions as masked per-population ("plane") updates.
 
-TPU-native equivalent of the reference's edge loops (LBMSolver.h:147-265):
+The equivalent of the reference's edge loops (LBMSolver.h:147-265):
 instead of rank-guarded OpenMP loops over boundary rows/columns, every BC is
 a `jnp.where` over coordinate masks, applied identically on every shard (the
 masks are empty away from the global edges), which keeps the program SPMD —

@@ -8,7 +8,7 @@ LBMSolver.h:240-263 reflects on the voxel boundary). The voxel mask still
 decides WHICH cells are solid; the per-link intersection fraction q moves
 the effective wall from the voxel face to the true surface.
 
-TPU-native formulation: with pull streaming, every term the closure needs
+Formulation: with pull streaming, every term the closure needs
 is already resident at the boundary cell itself after the stream —
 
   unknown direction j at fluid cell x_f (its pull source x_f − c_j is
@@ -20,7 +20,7 @@ is already resident at the boundary cell itself after the stream —
   and f̂_i(x_f − c_i) is exactly the post-STREAM value of plane i at x_f
   (pull: f_i(x) = f̂_i(x − c_i)). So the whole scheme is a per-plane
   SELECT against two resident arrays — no gathers, no index lists, fully
-  vectorizable on the VPU and shardable (the q table shards like f).
+  vectorizable and shardable (the q table shards like f).
 
 The q table is built once on the host from the problem's analytic signed
 distance function (Problem.obstacle_sdf) by vectorized bisection along

@@ -1,11 +1,11 @@
 """On-device diagnostics: macroscopic fields, stability, max velocity.
 
-TPU-native equivalents of the reference's reductions (LBMGrid.h:285-344) and
+Equivalents of the reference's reductions (LBMGrid.h:285-344) and
 the macroscopic-field bookkeeping its collision loop does on the side
 (LBMSolver.h:111-114 + BC overrides at LBMSolver.h:203-205, 232-234,
 260-261): we recompute moments from the current state once per output frame
-instead of storing three extra field arrays every step — on TPU the extra
-VPU flops are free next to the saved HBM traffic.
+instead of storing three extra field arrays every step — the extra flops
+cost little next to the saved memory traffic.
 """
 from __future__ import annotations
 
@@ -132,7 +132,9 @@ def probes_fn(problem: Problem):
             col = f[(slice(None),) + idx]               # (state_q,)
             fcol = col[:lat.Q]
             rho = jnp.sum(fcol)
-            mom = jnp.asarray(c, fcol.dtype).T @ fcol   # (D,)
+            # precision=HIGHEST: a default-precision product may run in TF32
+            mom = jnp.matmul(jnp.asarray(c, fcol.dtype).T, fcol,
+                             precision=jax.lax.Precision.HIGHEST)  # (D,)
             parts = [rho[None], mom / rho]
             if thermal:
                 parts.append(jnp.sum(col[lat.Q:])[None])

@@ -1,6 +1,6 @@
 """Momentum-exchange force evaluation on the obstacle.
 
-TPU-native equivalent of IOManager::record_forces (LBMIO.h:114-192): the
+The equivalent of IOManager::record_forces (LBMIO.h:114-192): the
 reference loops over solid cells, finds in-rank fluid neighbors, and sums
 2*c_i*f_next(fluid, i). Here the same sum is a handful of masked rolls:
 

@@ -5,15 +5,16 @@ Two tiers (SURVEY §7 build plan):
   * `make_step_rolled`  — the readable oracle. Unpadded state (Q, *spatial);
     streaming = per-population `jnp.roll` (pull scheme) followed by explicit
     "ghost sanitize" at non-periodic edges. This is the ground truth every
-    other tier (padded JAX, Pallas, sharded) is tested against.
+    other tier (padded JAX, the GPU kernel, sharded) is tested against.
 
   * `make_local_step_padded` — the production building block. Operates on a
     halo-padded local block (Q, ny+2, nx+2): pointwise BGK collision on the
     whole block (halo included — collision is pointwise, so neighbors' post-
     collision edge values never need to travel), then pull-streaming as nine
     static shifted slices (no roll, no gather — pure XLA slices), then masked
-    BCs on the center. Used directly under `shard_map` (parallel/) and mirrored
-    by the fused Pallas kernel (ops/step_pallas.py).
+    BCs on the center. Used directly under `shard_map` (parallel/) as the
+    XLA tier; the fused GPU kernel (ops/step_triton.py) runs the same
+    per-cell operations.
 
 Step order parity with the reference loop (LBMSolver.h:48-76):
 collision → [halo exchange] → streaming → boundary conditions.
@@ -26,6 +27,7 @@ from __future__ import annotations
 
 from typing import Callable
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 
@@ -92,7 +94,9 @@ def _add_force_field(problem: Problem, f_post: jnp.ndarray,
     comps = problem.force_fn(coords)
     F = jnp.stack([jnp.broadcast_to(jnp.asarray(c_, dt), shape)
                    for c_ in comps])                       # (D, *block)
-    cu = jnp.tensordot(jnp.asarray(lat.c, dt), F, axes=(1, 0))  # (Q, *block)
+    # precision=HIGHEST: a default-precision contraction may run in TF32
+    cu = jnp.tensordot(jnp.asarray(lat.c, dt), F, axes=(1, 0),
+                       precision=jax.lax.Precision.HIGHEST)  # (Q, *block)
     w = jnp.asarray(3.0 * lat.w, dt).reshape((lat.Q,) + (1,) * len(shape))
     return f_post + w * cu
 

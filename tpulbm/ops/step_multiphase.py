@@ -21,8 +21,7 @@ neighbors), so the sharded chunk body exchanges halos TWICE per step:
 refresh → collide (interior only) → refresh (pads now hold the
 neighbors' post-collision edges) → pull-stream. Both sub-steps are built
 by make_local_steps_multiphase; parallel/sharded_step.py wires the
-double-refresh body. Pallas fusion is future work (multiphase v1 is the
-jax tier; config falls back with a warning).
+double-refresh body. A fused GPU kernel is future work.
 """
 from __future__ import annotations
 

@@ -1,9 +1,9 @@
 """Halo ("ghost ring") exchange over the device mesh.
 
-TPU-native equivalent of the reference's MPI halo machinery
-(LBMGrid.h:249-283 pack/Isend/Irecv/Waitall/unpack): each step the 1-wide
-ring of a locally padded block is refreshed with neighbor edge data moved by
-`jax.lax.ppermute` over ICI — no pack/unpack buffers, no request handles.
+The equivalent of the reference's MPI halo machinery (LBMGrid.h:249-283
+pack/Isend/Irecv/Waitall/unpack): each step the 1-wide ring of a locally
+padded block is refreshed with neighbor edge data moved by
+`jax.lax.ppermute` — no pack/unpack buffers, no request handles.
 
 Two-phase exchange (x first, then y including the just-filled x-ring
 columns) fills corner ghosts with diagonal-neighbor data for free, fixing
@@ -13,11 +13,12 @@ ghost values, matching the reference's never-updated boundary ghosts
 (LBMGrid.h:185-213) — so single-device and multi-device runs agree exactly.
 
 A design note on WHAT travels: the reference exchanges post-collision
-populations. Here the ring holds *pre-collision* populations and each shard
-re-collides its halo cells locally — collision is pointwise, so one cheap
-VPU recompute of a 1-wide strip replaces nothing-at-all (the payload is the
-same 1-wide strip either way), and the exchange can happen at step start,
-maximizing overlap freedom for XLA.
+populations. The XLA tier's ring holds *pre-collision* populations and each
+shard re-collides its halo cells locally — collision is pointwise, so a
+recompute of a 1-wide strip costs little (the payload is the same 1-wide
+strip either way), and the exchange can happen at step start. The GPU
+kernel tier (ops/step_triton.py) carries post-collision populations, so its
+ring holds the neighbours' post-collision edges.
 """
 from __future__ import annotations
 
@@ -42,27 +43,31 @@ def _perm_bwd(n: int, periodic: bool):
 def refresh_ring_2d(fpad: jnp.ndarray, *, eq_ring: np.ndarray,
                     mesh_shape: tuple[int, int], periodic_x: bool,
                     periodic_y: bool = False, periodic_z: bool = False,
+                    x_ghost: np.ndarray | None = None,
                     axis_names: tuple[str, str] = ("y", "x")) -> jnp.ndarray:
     """Refresh the 1-wide ring of a local padded block (Q, nyl+2, nxl+2).
 
     Must run inside shard_map over a mesh with the given axis names.
     eq_ring is the (Q,) frozen ghost equilibrium used at physical edges;
-    periodic_y wraps the y ring instead (fully periodic boxes).
+    periodic_y wraps the y ring instead (fully periodic boxes). x_ghost,
+    when given, replaces eq_ring in the physical x-edge columns (corners
+    keep eq_ring).
     """
     my, mx = mesh_shape
     ay, ax = axis_names
     Q, nylp, nxlp = fpad.shape
     dtype = fpad.dtype
     eq = jnp.asarray(eq_ring, dtype)
-    eq_col = jnp.broadcast_to(eq[:, None], (Q, nylp - 2))
+    col = eq if x_ghost is None else jnp.asarray(x_ghost, dtype)
+    edge_col = jnp.broadcast_to(col[:, None], (Q, nylp - 2))
     eq_row = jnp.broadcast_to(eq[:, None], (Q, nxlp))
 
     # --- phase X: fill west/east ring columns (rows 1..nyl only) ---
     left_edge = fpad[:, 1:-1, 1]
     right_edge = fpad[:, 1:-1, -2]
     if mx == 1:
-        west = right_edge if periodic_x else eq_col
-        east = left_edge if periodic_x else eq_col
+        west = right_edge if periodic_x else edge_col
+        east = left_edge if periodic_x else edge_col
     else:
         from_west = lax.ppermute(right_edge, ax, _perm_fwd(mx, periodic_x))
         from_east = lax.ppermute(left_edge, ax, _perm_bwd(mx, periodic_x))
@@ -70,8 +75,8 @@ def refresh_ring_2d(fpad: jnp.ndarray, *, eq_ring: np.ndarray,
             west, east = from_west, from_east
         else:
             ix = lax.axis_index(ax)
-            west = jnp.where(ix > 0, from_west, eq_col)
-            east = jnp.where(ix < mx - 1, from_east, eq_col)
+            west = jnp.where(ix > 0, from_west, edge_col)
+            east = jnp.where(ix < mx - 1, from_east, edge_col)
     fpad = fpad.at[:, 1:-1, 0].set(west)
     fpad = fpad.at[:, 1:-1, -1].set(east)
 
@@ -165,199 +170,6 @@ def refresh_ring_3d(fpad: jnp.ndarray, *, eq_ring: np.ndarray,
 
 def refresh_ring(fpad, **kw):
     return (refresh_ring_3d if fpad.ndim == 4 else refresh_ring_2d)(fpad, **kw)
-
-
-def _eq_block(eq_ring, dtype, shape):
-    """(Q,) frozen ghost equilibrium broadcast to `shape` (rank-generic)."""
-    eq = jnp.asarray(eq_ring, dtype)
-    return jnp.broadcast_to(eq.reshape((shape[0],) + (1,) * (len(shape) - 1)),
-                            shape)
-
-
-def ring_rows(f: jnp.ndarray, *, eq_ring: np.ndarray,
-              mesh_shape: tuple[int, int], depth: int = 1,
-              periodic_y: bool = False,
-              axis_names: tuple[str, str] = ("y", "x")
-              ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """y-halo rows for the unpadded-state (pallas) path: (rb, rt), each
-    (Q, ..., depth, nx) — the neighbor shard's edge rows (at every z plane
-    in 3-D); frozen ghost equilibrium at physical y edges (wrapped
-    neighbor data instead when periodic_y). Rank-generic
-    over (Q, nyl, nxl) and (Q, nz, nyl, nxl): rows/columns are always the
-    last two axes. depth=2 feeds the fused two-step 2-D kernel; the 3-D
-    kernels use the sublane-aligned halo height (8). mesh_x must be 1
-    (full-width kernels do x pulls as lane rolls; x-sharded meshes use
-    ring_cols + ring_rows_ext instead)."""
-    my, mx = mesh_shape
-    if mx != 1:
-        raise ValueError("ring_rows requires mesh_x == 1")
-    ay = axis_names[0]
-    nyl = f.shape[-2]
-    top_edge = f[..., nyl - depth:nyl, :]
-    bottom_edge = f[..., 0:depth, :]
-    if my == 1:
-        if periodic_y:
-            return top_edge, bottom_edge
-        eq_rows = _eq_block(eq_ring, f.dtype,
-                            f.shape[:-2] + (depth, f.shape[-1]))
-        return eq_rows, eq_rows
-    from_below = lax.ppermute(top_edge, ay, _perm_fwd(my, periodic_y))
-    from_above = lax.ppermute(bottom_edge, ay, _perm_bwd(my, periodic_y))
-    if periodic_y:
-        return from_below, from_above
-    eq_rows = _eq_block(eq_ring, f.dtype, f.shape[:-2] + (depth, f.shape[-1]))
-    iy = lax.axis_index(ay)
-    rb = jnp.where(iy > 0, from_below, eq_rows)
-    rt = jnp.where(iy < my - 1, from_above, eq_rows)
-    return rb, rt
-
-
-def ring_cols(f: jnp.ndarray, *, eq_ring: np.ndarray,
-              mesh_shape: tuple[int, int], depth: int, H: int,
-              periodic_x: bool,
-              axis_names: tuple[str, str] = ("y", "x")
-              ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """x-halo columns for the x-tiled pallas kernels: (rl, rr), each
-    (Q, ..., nyl, H) raw pre-collision populations (rank-generic: a leading
-    nz axis rides along untouched).
-
-    Only `depth` columns are meaningful — right-aligned in rl
-    (rl[..., H-depth:] = left neighbor's last columns) and left-aligned in
-    rr (rr[..., :depth] = right neighbor's first columns); the rest is the
-    frozen ghost equilibrium so collision of the stitched halo region stays
-    finite. At physical x edges (or mesh_x == 1, non-periodic) the whole
-    block is equilibrium fill — the kernel's per-substep edge sanitize
-    (reference ghost semantics, LBMGrid.h:448-466) owns those columns. The
-    padding to width H exists because Mosaic DMA lane slices must be
-    multiples of 128."""
-    my, mx = mesh_shape
-    ax = axis_names[1]
-    nxl = f.shape[-1]
-    eq_block = _eq_block(eq_ring, f.dtype, f.shape[:-1] + (H,))
-    if mx == 1 and not periodic_x:
-        return eq_block, eq_block
-    left_edge = f[..., 0:depth]
-    right_edge = f[..., nxl - depth:nxl]
-    if mx == 1:  # periodic single shard: wrap own edges
-        from_west, from_east = right_edge, left_edge
-    else:
-        from_west = lax.ppermute(right_edge, ax, _perm_fwd(mx, periodic_x))
-        from_east = lax.ppermute(left_edge, ax, _perm_bwd(mx, periodic_x))
-        if not periodic_x:
-            ix = lax.axis_index(ax)
-            eq_cols = _eq_block(eq_ring, f.dtype, f.shape[:-1] + (depth,))
-            from_west = jnp.where(ix > 0, from_west, eq_cols)
-            from_east = jnp.where(ix < mx - 1, from_east, eq_cols)
-    rl = eq_block.at[..., H - depth:H].set(from_west)
-    rr = eq_block.at[..., 0:depth].set(from_east)
-    return rl, rr
-
-
-def ring_cols_padded(f: jnp.ndarray, *, eq_ring: np.ndarray,
-                     mesh_shape: tuple[int, int], depth: int, H: int,
-                     periodic_x: bool, pad_x: int,
-                     axis_names: tuple[str, str] = ("y", "x")
-                     ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """ring_cols for lane-PADDED x-sharded local blocks (any real width on
-    the x-tiled pallas kernels — the reference runs any divisible grid,
-    LBMGrid.h:366-392).
-
-    `f` is the padded block (width nxp = nxl + pad_x; real data in
-    [0, nxl), shadow/pad columns in [nxl, nxp)). Sends slice the REAL
-    region only, so they are correct whether or not the caller has
-    refreshed the pad columns yet:
-
-      * west-send (consumed as the receiver's rl): my real last `depth`
-        columns [nxl - depth, nxl) — the receiver's padded frame places
-        its west neighbor's real edge exactly at its own coordinate -1;
-      * east-send (consumed as the receiver's rr + fill): my real first
-        `depth + pad_x` columns — the first pad_x of them refresh the
-        receiver's shadow region (its padded columns [nxl, nxp) duplicate
-        MY [0, pad_x)), the remaining `depth` land in rr, i.e. at the
-        receiver's padded coordinates [nxp, nxp + depth).
-
-    Returns (rl, rr, fill): rl/rr shaped exactly as ring_cols' outputs
-    (H-wide, eq-padded); fill is (Q, ..., nyl, pad_x), frozen ghost
-    equilibrium at the physical east edge (the kernel's fr-gated pad pin
-    keeps those columns at equilibrium through the cascade). The caller
-    must write `fill` into f's pad columns BEFORE building the extended
-    y-ring rows (ring_rows_ext row sends span the full padded width)."""
-    my, mx = mesh_shape
-    ax = axis_names[1]
-    nxl = f.shape[-1] - pad_x
-    eq_block = _eq_block(eq_ring, f.dtype, f.shape[:-1] + (H,))
-    left_send = f[..., 0:depth + pad_x]
-    right_send = f[..., nxl - depth:nxl]
-    if mx == 1 and not periodic_x:
-        return eq_block, eq_block, _eq_block(eq_ring, f.dtype,
-                                             f.shape[:-1] + (pad_x,))
-    if mx == 1:  # periodic single shard: wrap own real edges
-        from_west, from_east = right_send, left_send
-    else:
-        from_west = lax.ppermute(right_send, ax, _perm_fwd(mx, periodic_x))
-        from_east = lax.ppermute(left_send, ax, _perm_bwd(mx, periodic_x))
-        if not periodic_x:
-            ix = lax.axis_index(ax)
-            from_west = jnp.where(
-                ix > 0, from_west,
-                _eq_block(eq_ring, f.dtype, f.shape[:-1] + (depth,)))
-            from_east = jnp.where(
-                ix < mx - 1, from_east,
-                _eq_block(eq_ring, f.dtype,
-                          f.shape[:-1] + (depth + pad_x,)))
-    rl = eq_block.at[..., H - depth:H].set(from_west)
-    rr = eq_block.at[..., 0:depth].set(from_east[..., pad_x:])
-    return rl, rr, from_east[..., 0:pad_x]
-
-
-def ring_rows_ext(f: jnp.ndarray, rl: jnp.ndarray, rr: jnp.ndarray, *,
-                  eq_ring: np.ndarray, mesh_shape: tuple[int, int],
-                  depth: int, periodic_y: bool = False,
-                  axis_names: tuple[str, str] = ("y", "x")
-                  ) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """y-halo rows extended across the x-halo regions: (rb, rt), each
-    (Q, ..., depth, nxl + 2H) where H = rl.shape[-1] (rank-generic).
-
-    Two-phase composition (x columns first via ring_cols, then y rows built
-    from block+columns) fills the corner regions with diagonal-neighbor data
-    — the fix for the reference's never-exchanged corner ghosts (SURVEY §5
-    deviation #1). Physical y edges hold the frozen ghost equilibrium across
-    the full extended width; periodic_y wraps instead (the x-first
-    composition then carries diagonally-WRAPPED corner data for free)."""
-    my = mesh_shape[0]
-    ay = axis_names[0]
-    nyl = f.shape[-2]
-    H = rl.shape[-1]
-    ext_bottom = jnp.concatenate(
-        [rl[..., 0:depth, :], f[..., 0:depth, :], rr[..., 0:depth, :]],
-        axis=-1)
-    ext_top = jnp.concatenate(
-        [rl[..., nyl - depth:, :], f[..., nyl - depth:, :],
-         rr[..., nyl - depth:, :]], axis=-1)
-    if my == 1:
-        if periodic_y:
-            return ext_top, ext_bottom
-        eq_rows = _eq_block(eq_ring, f.dtype,
-                            f.shape[:-2] + (depth, f.shape[-1] + 2 * H))
-        return eq_rows, eq_rows
-    from_below = lax.ppermute(ext_top, ay, _perm_fwd(my, periodic_y))
-    from_above = lax.ppermute(ext_bottom, ay, _perm_bwd(my, periodic_y))
-    if periodic_y:
-        return from_below, from_above
-    eq_rows = _eq_block(eq_ring, f.dtype,
-                        f.shape[:-2] + (depth, f.shape[-1] + 2 * H))
-    iy = lax.axis_index(ay)
-    rb = jnp.where(iy > 0, from_below, eq_rows)
-    rt = jnp.where(iy < my - 1, from_above, eq_rows)
-    return rb, rt
-
-
-# The 3-D kernels take the same ring shapes one rank up; the implementations
-# above are rank-generic, so these are pure aliases (kept for call-site
-# clarity in sharded_step).
-ring_rows_3d = ring_rows
-ring_cols_3d = ring_cols
-ring_rows_ext_3d = ring_rows_ext
 
 
 def make_padded(f_local: jnp.ndarray, eq_ring: np.ndarray) -> jnp.ndarray:

@@ -1,6 +1,6 @@
 """Device-mesh construction and decomposition choice.
 
-TPU-native equivalent of the reference's MPI Cartesian topology
+The equivalent of the reference's MPI Cartesian topology
 (LBMGrid.h:347-364) and processor-grid chooser (LBMGrid.h:366-392): an MPI
 communicator becomes a `jax.sharding.Mesh` with named axes ('y', 'x');
 neighbor ranks become `lax.ppermute` permutation lists (parallel/halo.py).
@@ -52,7 +52,7 @@ def make_mesh(mesh_shape: tuple[int, int] | None = None,
 
     mesh_shape=(my, mx) explicit, or None to auto-choose from the grid shape
     over all available devices (the `reorder=1` analog: we let jax order
-    devices; ICI locality comes from jax.make_mesh's device assignment).
+    devices; locality comes from jax.make_mesh's device assignment).
     """
     devices = list(devices if devices is not None else jax.devices())
     if mesh_shape is None:

@@ -1,8 +1,8 @@
 """Multi-host gather and rank-0 I/O semantics.
 
-TPU-native equivalent of the reference's MPI_Gather/Gatherv reassembly on
+The equivalent of the reference's MPI_Gather/Gatherv reassembly on
 rank 0 (LBMSolver.h:289-337, LBMIO.h:237-283) and its rank-0-only file
-handling (LBMIO.h:35-46): on a multi-host slice (`jax.process_count() > 1`)
+handling (LBMIO.h:35-46): on a multi-host run (`jax.process_count() > 1`)
 the shards of a global array are not all addressable from one process, so
 host fetches go through `multihost_utils.process_allgather`; files are
 written by process 0 only. Single-process runs keep the zero-copy

@@ -1,16 +1,16 @@
 """Pure physics kernels: moments, equilibrium, BGK collision, Guo forcing.
 
-TPU-native equivalents of the reference's math layer:
+Equivalents of the reference's math layer:
   * equilibrium       ← LBMUtils.h:9-12 (scalar) / 22-65 (AVX2 SIMD) — here a
                         single vectorized jnp expression over all Q directions
-                        at once (the VPU is the SIMD unit; no per-lane code).
+                        at once (no per-lane code).
   * forced equilibrium← LBMUtils.h:15-19, 68-121 (dead code in the reference;
                         live here — it drives the Poiseuille preset).
   * moments + BGK     ← LBMSolver.h:101-123 (the collision hot loop).
 
 All functions are shape-polymorphic over the spatial dims: `f` is
-(Q, *spatial) in SoA/population-major layout — the natural TPU layout (minor
-dim = 128-lane axis). The reference's storage is actually cell-major AoS
+(Q, *spatial) in SoA/population-major layout (x is the minor, contiguous
+axis). The reference's storage is actually cell-major AoS
 (LBMGrid.h:105-107) despite its README claiming SoA; we use true SoA.
 
 Everything is dtype-polymorphic; lattice constants are baked in as
@@ -34,10 +34,11 @@ def moments(lat: Lattice, f: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
 
     Parity: LBMSolver.h:101-109. Returns (rho: (*spatial,), u: (D, *spatial)).
 
-    Written as explicit ±plane sums, NOT einsum: on TPU an einsum lowers to
-    an MXU matmul at default (bfloat16) precision, silently costing ~3
-    decimal digits per step; the velocity components are 0/±1 so exact adds
-    are both correct and faster on the VPU.
+    Written as explicit ±plane sums, NOT einsum: an einsum lowers to a
+    matrix product, which at default precision may run in reduced
+    precision (TF32 on a GPU), silently costing ~3 decimal digits per step;
+    the velocity components are 0/±1 so exact adds are both correct and
+    cheaper.
     """
     rho = jnp.sum(f, axis=0)
     c = lat.c  # (Q, D) host ints
@@ -66,7 +67,7 @@ def equilibrium(lat: Lattice, rho: jnp.ndarray, u: jnp.ndarray) -> jnp.ndarray:
     base = 1.0 - 1.5 * usq
     planes = []
     for i in range(lat.Q):
-        # c·u as exact ±adds (see moments() for why not einsum on TPU)
+        # c·u as exact ±adds (see moments() for why not einsum)
         cu = None
         for d in range(lat.D):
             cid = int(c[i, d])
@@ -98,8 +99,8 @@ def collide(lat: Lattice, f: jnp.ndarray, inv_tau: float,
     """BGK relaxation: f_post = f - (1/tau) (f - f_eq).  Parity: LBMSolver.h:117-123.
 
     Returns the post-collision populations; pointwise, so it is safe to apply
-    on halo cells too (used by the sharded step, which collides the padded
-    block so neighbors' post-collision edge values never travel over ICI).
+    on halo cells too (used by the sharded XLA step, which collides the
+    padded block so neighbors' post-collision edge values never travel).
 
     Body force: the source S_i = 3 w_i (c_i · F) is added *post-relaxation*,
     which injects exactly momentum F per step (Σ_i c_i S_i = F by lattice
@@ -200,8 +201,8 @@ def collide_regularized(lat: Lattice, f: jnp.ndarray, inv_tau: float,
                                           for b in range(a + 1, D)]
     for a, b in pairs:
         cab = c[:, a] * c[:, b]                  # (Q,) host
-        # precision=HIGHEST: a default-precision tensordot lowers to the
-        # MXU in bfloat16 passes on TPU (see moments())
+        # precision=HIGHEST: a default-precision tensordot may run in
+        # reduced precision (TF32 on a GPU; see moments())
         pi_ab = jnp.tensordot(jnp.asarray(cab, f.dtype), fneq, axes=(0, 0),
                               precision=jax.lax.Precision.HIGHEST)
         coeff = cab - (1.0 / 3.0 if a == b else 0.0)
@@ -254,26 +255,6 @@ def kbc_projectors(lat: Lattice) -> tuple[np.ndarray, np.ndarray]:
     return S, H
 
 
-def kbc_coeffs(lat: Lattice):
-    """Per-population moment→population coefficient vectors for the KBC
-    deviation parts (the fused kernels' unrolled form of kbc_projectors):
-
-        Δs_i = sP_i·ΔΠ_xy + sN_i·ΔN
-        Δh_i = hT_i·ΔT + hqx_i·Δq_xyy + hqy_i·Δq_yxx + hA_i·ΔA_xxyy
-
-    with the moment deltas computed from f − feq (Δρ = Δj = 0)."""
-    if lat.D != 2 or lat.Q != 9:
-        raise ValueError("the KBC operator is implemented for D2Q9")
-    c = lat.c.astype(np.float64)
-    mons = [(0, 0), (1, 0), (0, 1), (1, 1), (2, 0), (0, 2),
-            (1, 2), (2, 1), (2, 2)]
-    M = np.stack([c[:, 0] ** p * c[:, 1] ** q for p, q in mons])
-    Minv = np.linalg.inv(M)
-    return (Minv[:, 3], 0.5 * (Minv[:, 4] - Minv[:, 5]),
-            0.5 * (Minv[:, 4] + Minv[:, 5]),
-            Minv[:, 6], Minv[:, 7], Minv[:, 8])
-
-
 def collide_kbc(lat: Lattice, f: jnp.ndarray, inv_tau: float,
                 force: tuple[float, ...] = ()) -> jnp.ndarray:
     """KBC entropic multi-relaxation collision (D2Q9):
@@ -296,12 +277,10 @@ def collide_kbc(lat: Lattice, f: jnp.ndarray, inv_tau: float,
     feq = equilibrium(lat, rho, u)
     dneq = f - feq
     S, H = kbc_projectors(lat)
-    # precision=HIGHEST: at TPU default precision these 9×9 projector
-    # contractions run on the MXU in bfloat16 passes, planting ~1e-3
-    # relative noise in ds/dh that the sh/hh entropic ratio then amplifies
-    # — the round-4 on-TPU probe measured the pallas tier (exact f32 VPU
-    # sums) 300+ tolerance-units away from the jax tier through exactly
-    # this. HIGHEST keeps the contraction in f32 like moments() does.
+    # precision=HIGHEST: at default precision these 9×9 projector
+    # contractions may run in reduced precision (TF32 on a GPU), planting
+    # ~1e-3 relative noise in ds/dh that the sh/hh entropic ratio then
+    # amplifies. HIGHEST keeps the contraction in f32 like moments() does.
     ds = jnp.tensordot(jnp.asarray(S, f.dtype), dneq, axes=(1, 0),
                        precision=jax.lax.Precision.HIGHEST)
     dh = jnp.tensordot(jnp.asarray(H, f.dtype), dneq, axes=(1, 0),
@@ -314,10 +293,10 @@ def collide_kbc(lat: Lattice, f: jnp.ndarray, inv_tau: float,
     # The raw sh/hh ratio is catastrophically ill-conditioned whenever the
     # higher-mode deviation dh is rounding noise while the shear deviation
     # ds is real: |sh| ≤ √(ss·hh) (Cauchy–Schwarz), so γ·dh = O(ds) with a
-    # NOISE-DIRECTION-dependent sign — the round-4 on-TPU probe measured a
-    # 1000×/step amplification of pallas-vs-XLA fma rounding differences
-    # through it (a hard hh-threshold guard does not help: flips just move
-    # to the threshold). With the λ floor the worst-case damage of an
+    # NOISE-DIRECTION-dependent sign — measured as a 1000×/step
+    # amplification of fma rounding differences between two
+    # implementations (a hard hh-threshold guard does not help: flips just
+    # move to the threshold). With the λ floor the worst-case damage of an
     # O(eps) input perturbation is O(eps·√(ss·feq)) — true roundoff — while
     # resolved physics (hh ≫ λ) sees γ to ≤1% at hh = 100λ. λ sits ~5
     # decades below resolved-turbulence hh (~1e-5·rho) and ~5 above the
@@ -417,7 +396,7 @@ def _mrt_basis(lat: Lattice) -> tuple[np.ndarray, tuple[str, ...]]:
 # Below tau ≈ 0.55 the fixed e/eps literature rates join the same loop:
 # at tau = 0.5384 (Re = 200 bench defaults) the defaults blow up by t = 400
 # on 512×128 f32 even with clean corners. Overriding e → s_nu is measured
-# stable at both 512×128 and the full 2048×512 (2240 steps, TPU); the
+# stable at both 512×128 and the full 2048×512 (2240 steps); the
 # eps-only override suffices at 512×128 but still blows up at 2048×512 —
 # e is the dominant feedback rate at scale. Use --mrt-rates 'e=1.857' for
 # near-tau-1/2 runs through the Zou-He inlet/outlet chain.
@@ -460,9 +439,8 @@ def mrt_relax_matrix(lat: Lattice, inv_tau: float,
                      overrides: dict[str, float] | None = None) -> np.ndarray:
     """R = M⁻¹ S M (Q, Q float64): the MRT update is
     f_post = f − R (f − feq), applied population-space — no moment-space
-    intermediates at run time, which is what makes the operator cheap to
-    fuse into the Pallas kernels (Q² multiply-adds on data already in
-    registers). Entries below 1e-13 are zeroed (S = s·I gives R ≈ s·I up
+    intermediates at run time (Q² multiply-adds per cell). Entries below
+    1e-13 are zeroed (S = s·I gives R ≈ s·I up
     to inversion rounding; pruning removes that noise and the structural
     zeros the velocity-set symmetry produces)."""
     M, _ = _mrt_basis(lat)
@@ -470,39 +448,6 @@ def mrt_relax_matrix(lat: Lattice, inv_tau: float,
     R = np.linalg.inv(M) @ S @ M
     R[np.abs(R) < 1e-13] = 0.0
     return R
-
-
-def mrt_rank_correction(lat: Lattice, inv_tau: float,
-                        overrides: dict[str, float] | None = None
-                        ) -> tuple[np.ndarray, np.ndarray]:
-    """Low-rank form of the MRT operator for the Pallas kernels:
-
-        R = s_nu·I + Σ_k (s_k − s_nu) · u_k v_kᵀ
-          with u_k = (M⁻¹) column k, v_k = M row k,
-
-    summed over ONLY the moments whose rate differs from the shear rate
-    s_nu = 1/tau. Conserved moments never contribute even though their
-    rate (0) differs: v_k · (f − feq) ≡ 0 for mass/momentum rows, so they
-    are excluded analytically. Returns (U (Q, r), V (r, Q)) float64, with
-    r = 0 when MRT degenerates to BGK (all rates = s_nu).
-
-    This is what the kernels evaluate: the dense f − R(f−feq) keeps ~2Q
-    row blocks live and overflowed Mosaic's 16 MB scoped-vmem stack on
-    padded x-tiled configurations; the rank form needs r running inner-
-    product blocks (r = 2 for D2Q9 defaults, 10 for D3Q19) and ~2rQ + Q
-    multiply-adds instead of Q². Verified against mrt_relax_matrix to
-    1e-12 by tests/test_mrt.py.
-    """
-    M, names = _mrt_basis(lat)
-    rates = mrt_rates(lat, inv_tau, overrides)
-    Minv = np.linalg.inv(M)
-    keep = [k for k, n in enumerate(names)
-            if n not in _MRT_CONSERVED and rates[k] != inv_tau]
-    U = np.stack([(rates[k] - inv_tau) * Minv[:, k] for k in keep], axis=1) \
-        if keep else np.zeros((lat.Q, 0))
-    V = M[keep] if keep else np.zeros((0, lat.Q))
-    U[np.abs(U) < 1e-15] = 0.0
-    return U, V
 
 
 def collide_mrt(lat: Lattice, f: jnp.ndarray, inv_tau: float,
@@ -561,7 +506,7 @@ def smagorinsky_inv_tau(lat: Lattice, inv_rho: jnp.ndarray, devs,
 
         tau_eff = (tau0 + sqrt(tau0² + 18 Cs² Q̄ / rho)) / 2   (cs⁴ = 1/9)
 
-    One sqrt + one divide per cell on the VPU; tau_eff >= tau0 always, so
+    One sqrt + one divide per cell; tau_eff >= tau0 always, so
     the model only ever ADDS dissipation (that is the stabilizing
     property). devs: sequence of Q (f_i − feq_i) blocks.
     """
@@ -613,9 +558,6 @@ def power_law_inv_tau_from_gfac(gfac: jnp.ndarray, k: float,
     truncation), so the iteration is globally well-conditioned; iterates
     are clamped to λ ∈ [log(TAU_MIN − 1/2), log(TAU_MAX − 1/2)].
 
-    This single solver is shared verbatim by the jax tier and all three
-    Pallas kernels (the kernels only differ in how they assemble gfac from
-    plane lists), so the tiers cannot drift apart.
     """
     nm1 = float(n) - 1.0
     lam_lo = float(np.log(PLAW_TAU_MIN - 0.5))

@@ -11,7 +11,7 @@ unchanged on our outputs (SURVEY §7 "keeping the reference scripts working"):
 
 The hot formatting paths (VTK frames, the 1M-row velocity CSV) dispatch to a
 small C++ helper (native/fastio.cpp, loaded via ctypes) when available —
-the TPU-native analog of the reference's native IO layer — with a NumPy
+the analog of the reference's native IO layer — with a NumPy
 fallback that produces identical bytes.
 """
 from __future__ import annotations
